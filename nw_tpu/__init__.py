@@ -1,13 +1,13 @@
-"""nw_tpu — a TPU-native Needleman-Wunsch global-alignment engine.
+"""nw_tpu — an accelerator Needleman-Wunsch global-alignment engine (JAX).
 
 A from-scratch re-design of the capabilities of the reference C99+pthreads
-tool ``skotchandsoda/needleman-wunsch`` for TPU hardware:
+tool ``skotchandsoda/needleman-wunsch`` for a GPU:
 
 * the DP score-table fill (reference ``needleman-wunsch.c:418-626``) becomes
-  an anti-diagonal wavefront — a ``lax.scan`` reference implementation
-  (:mod:`nw_tpu.ops.fill_scan`) and a Pallas TPU kernel
-  (:mod:`nw_tpu.ops.fill_pallas`) that keeps the rolling diagonals in VMEM
-  and streams packed 3-bit direction arrows to HBM;
+  an anti-diagonal ``lax.scan`` wavefront (:mod:`nw_tpu.ops.fill_scan`,
+  any backend, the oracle) and, for short reads on the GPU, a
+  one-lane-per-pair row-sweep Pallas kernel (:mod:`nw_tpu.ops.fill_rows`)
+  that emits scores, optimal-alignment counts and 2-bit greedy walk words;
 * the traceback / all-optimal-alignment enumeration (reference
   ``needleman-wunsch.c:209-388``) becomes a device-side vectorized backward
   walk for single alignments (:mod:`nw_tpu.ops.traceback`), an O(M*N)

@@ -1,7 +1,7 @@
 """Production batch CLI: align many pairs from a file at device speed.
 
 The reference binary processes one pair per process; this is the
-batch/serving front-end the TPU engine is built for:
+batch/serving front-end the accelerator engine is built for:
 
     nw-tpu-batch --pairs pairs.txt --alignments --counts -m 2 -k 1 -d 1
 
@@ -12,7 +12,7 @@ byte alphabet rules as the reference reader).  Output: TSV to stdout
     index  score  [count]  [X  Y]
 
 Engine: pairs are length-bucketed and chunked; each chunk runs through
-NWAligner.align_batch (Pallas kernels on TPU); --checkpoint-dir makes
+NWAligner.align_batch (the engine nw_tpu.ops.fill_auto picks); --checkpoint-dir makes
 the run resumable after preemption (runtime.CheckpointedRunner — chunks
 already on disk are skipped).  --sort-by-length reduces padding waste
 for mixed-length inputs (output order is still input order).
@@ -46,7 +46,7 @@ def _read_pairs(stream) -> List[Tuple[bytes, bytes]]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="nw-tpu-batch",
-        description="Batched Needleman-Wunsch alignment on TPU",
+        description="Batched Needleman-Wunsch alignment on the GPU",
     )
     ap.add_argument("--pairs", help="input file (default: stdin)")
     ap.add_argument("--out", help="output TSV (default: stdout)")

@@ -46,9 +46,6 @@ class AlignConfig:
         any traceback / enumeration / table rendering).  Score-only fills
         are cheaper (reference equivalent: ``-q`` with no ``-l/-s/-t``,
         which skips ``construct_alignments``, needleman-wunsch.c:667).
-      use_pallas: use the Pallas TPU wavefront kernel when available;
-        fall back to the lax.scan implementation otherwise (CPU backend,
-        interpret mode, or very small problems).
       band: optional alignment band half-width (framework extension; the
         reference always fills the full table).  ``None`` = full fill.
       max_alignments: safety cap on all-optimal-alignment enumeration.
@@ -71,7 +68,6 @@ class AlignConfig:
         1280, 1536, 2048, 2560, 3072, 4096, 5120, 6144, 8192,
     )
     traceback: bool = True
-    use_pallas: bool = True
     band: Optional[int] = None
     max_alignments: Optional[int] = None
     mesh_shape: Optional[Tuple[int, int]] = None
@@ -85,5 +81,5 @@ class AlignConfig:
             # beyond the ladder: next KiB (padding waste <12%, shapes
             # still coarse enough to reuse compilations)
             return -(-length // 1024) * 1024
-        # Fall back to the next multiple of 128 (TPU lane width).
+        # Fall back to the next multiple of 128.
         return max(128, -(-length // 128) * 128)

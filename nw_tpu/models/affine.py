@@ -25,12 +25,15 @@ from nw_tpu.ops.fill_scan import NEG_INF
 
 
 @jax.jit
-def affine_score(top, side, m, k, open_, extend):
-    """Optimal affine-gap global alignment score (int32 scalar)."""
+def affine_score(top, side, m, k, open_, extend, len1=None, len2=None):
+    """Optimal affine-gap global alignment score (int32 scalar), read at
+    the true corner (len2, len1) of a possibly padded pair."""
     A = top.shape[0]
     B = side.shape[0]
     N = B + 1
     K = A + B + 1
+    len1 = jnp.asarray(A if len1 is None else len1, jnp.int32)
+    len2 = jnp.asarray(B if len2 is None else len2, jnp.int32)
 
     m = jnp.asarray(m, jnp.int32)
     k = jnp.asarray(k, jnp.int32)
@@ -86,8 +89,8 @@ def affine_score(top, side, m, k, open_, extend):
 
         best = jnp.maximum(jnp.maximum(M, IX), IY)
         cap = jnp.where(
-            kk == A + B,
-            jax.lax.dynamic_index_in_dim(best, B, keepdims=False),
+            kk == len1 + len2,
+            jax.lax.dynamic_index_in_dim(best, len2, keepdims=False),
             cap,
         )
         return (M, IX, IY, Mp, IXp, IYp, cap), None
@@ -100,13 +103,14 @@ def affine_score(top, side, m, k, open_, extend):
     return cap
 
 
+# ragged batched fills (padded to a bucket; lens pick the true corner)
 affine_score_batch = jax.jit(
-    jax.vmap(affine_score, in_axes=(0, 0, None, None, None, None))
+    jax.vmap(affine_score, in_axes=(0, 0, None, None, None, None, 0, 0))
 )
 
 
 @jax.jit
-def affine_fill_arrows(top, side, m, k, open_, extend):
+def affine_fill_arrows(top, side, m, k, open_, extend, len1=None, len2=None):
     """Gotoh fill emitting per-cell traceback state bits.
 
     Per cell (diagonal-major uint8[K, N]):
@@ -116,13 +120,16 @@ def affine_fill_arrows(top, side, m, k, open_, extend):
                 ties resolve to open
       bit 3:    same for IY
 
-    Returns dict(score, state, arrows) — ``state`` is the corner cell's
-    best matrix (0/1/2, ties M > IX > IY), the traceback start.
+    Returns dict(score, state, arrows) — ``state`` is the true corner
+    (len2, len1) cell's best matrix (0/1/2, ties M > IX > IY), the
+    traceback start.
     """
     A = top.shape[0]
     B = side.shape[0]
     N = B + 1
     K = A + B + 1
+    len1 = jnp.asarray(A if len1 is None else len1, jnp.int32)
+    len2 = jnp.asarray(B if len2 is None else len2, jnp.int32)
 
     m = jnp.asarray(m, jnp.int32)
     k = jnp.asarray(k, jnp.int32)
@@ -189,12 +196,14 @@ def affine_fill_arrows(top, side, m, k, open_, extend):
 
         best = jnp.maximum(jnp.maximum(M, IX), IY)
         state = jnp.where(M >= best, 0, jnp.where(IX >= IY, 1, 2))
-        at_corner = kk == A + B
+        at_corner = kk == len1 + len2
         cap = jnp.where(
-            at_corner, jax.lax.dynamic_index_in_dim(best, B, keepdims=False), cap
+            at_corner, jax.lax.dynamic_index_in_dim(best, len2, keepdims=False), cap
         )
         cstate = jnp.where(
-            at_corner, jax.lax.dynamic_index_in_dim(state, B, keepdims=False), cstate
+            at_corner,
+            jax.lax.dynamic_index_in_dim(state, len2, keepdims=False),
+            cstate,
         )
         return (M, IX, IY, Mp, IXp, IYp, cap, cstate), bits
 
@@ -264,90 +273,40 @@ def affine_align(s1, s2, m: int, k: int, open_: int, extend: int):
     return int(out["score"]), X, Y
 
 
-def affine_score_pairs(pairs, m: int, k: int, open_: int, extend: int):
-    """Optimal affine-gap score per pair (int32[B]), variable lengths.
-
-    Batched production path: the Pallas Gotoh kernel
-    (:func:`nw_tpu.ops.variants_pallas.affine_scores_pallas_batch`, 88
-    GCUPS/chip at 150bp) on TPU; the same kernel interpreted elsewhere.
-    (``affine_score_batch`` above vmaps the scan over uniform-length
-    arrays; this API handles ragged pairs via length buckets.)
-    """
-    import numpy as np
-
-    from nw_tpu.ops.encode import encode_batch_u8
-    from nw_tpu.ops.variants_pallas import affine_scores_pallas_batch
-
-    norm = [
+def _norm(pairs):
+    return [
         (a.encode() if isinstance(a, str) else bytes(a),
          b.encode() if isinstance(b, str) else bytes(b))
         for a, b in pairs
     ]
-    # uint8 upload: engines cast on device; all outputs are
-    # lens/in_rect-gated (tests/test_encode_u8.py)
-    tops, sides, l1, l2 = encode_batch_u8(norm)
-    if sides.shape[1] > 3072 and jax.devices()[0].platform == "tpu":
-        # long-side batches: the banded Gotoh kernel (any side length;
-        # ops/variants_banded.py)
-        from nw_tpu.ops.variants_banded import affine_scores_banded_batch
 
-        return np.asarray(
-            affine_scores_banded_batch(tops, sides, l1, l2, m, k, open_, extend)
-        )
-    if sides.shape[1] > 3072:
-        # the flat Gotoh kernel carries 7 scratch diagonals and
-        # outgrows VMEM beyond ~3k sides (probed); per-pair scan instead
-        from nw_tpu.ops.encode import encode
 
-        return np.array(
-            [
-                int(
-                    affine_score(
-                        jnp.asarray(encode(a)), jnp.asarray(encode(b)),
-                        m, k, open_, extend,
-                    )
-                )
-                for a, b in norm
-            ],
-            np.int32,
-        )
-    interpret = jax.devices()[0].platform != "tpu"
-    from nw_tpu.ops.fill_auto import rowsweep_pick
+def affine_score_pairs(pairs, m: int, k: int, open_: int, extend: int):
+    """Optimal affine-gap score per pair (int32[B]), variable lengths:
+    the scan fill vmapped over the length-bucketed batch in one
+    dispatch (score-only, so no per-cell state is stored)."""
+    import numpy as np
 
-    rs = (
-        None if interpret else
-        rowsweep_pick("affine", tops.shape[1], sides.shape[1], len(norm))
-    )
-    if rs is not None:
-        from nw_tpu.ops.variants_rowsweep import (
-            affine_scores_rowsweep_batch,
-        )
+    from nw_tpu.ops.encode import encode_batch_u8
 
-        return np.asarray(
-            affine_scores_rowsweep_batch(
-                tops, sides, l1, l2, m, k, open_, extend,
-                rows=rs[0], groups=rs[1],
-            )
-        )
+    tops, sides, l1, l2 = encode_batch_u8(_norm(pairs))
     return np.asarray(
-        affine_scores_pallas_batch(
-            tops, sides, l1, l2, m, k, open_, extend, interpret=interpret
+        affine_score_batch(
+            tops, sides, m, k, open_, extend, jnp.asarray(l1), jnp.asarray(l2)
         )
     )
 
 
 @functools.partial(jax.jit, static_argnames=("max_steps",))
-def _affine_walk_packed(words, state0, l1, l2, max_steps: int):
-    """Device walk over packed Gotoh bits (one pair): the jitted
-    counterpart of :func:`affine_traceback`, emitting traceback.py op
-    codes (M->OP_DIAG, IX->OP_LEFT, IY->OP_UP) corner -> origin."""
-    import numpy as _np
+def _affine_walk(bits, state0, l1, l2, max_steps: int):
+    """Device walk over :func:`affine_fill_arrows` bits (one pair): the
+    jitted counterpart of :func:`affine_traceback`, emitting traceback.py
+    op codes (M->OP_DIAG, IX->OP_LEFT, IY->OP_UP) corner -> origin."""
 
     def step(t, st):
         i, j, s, n, ops = st
         active = (i > 0) | (j > 0)
-        kk = i + j
-        b = (words[kk >> 2, j] >> ((kk & 3) * 8)) & 0xFF
+        b = bits[i + j, j].astype(jnp.int32)
         is_m = s == 0
         is_ix = s == 1
         op = jnp.where(is_m, 0, jnp.where(is_ix, 1, 2)).astype(jnp.int8)
@@ -377,16 +336,19 @@ def _affine_walk_packed(words, state0, l1, l2, max_steps: int):
     return ops, n
 
 
+_affine_fill_batch = jax.jit(
+    jax.vmap(affine_fill_arrows, in_axes=(0, 0, None, None, None, None, 0, 0))
+)
+
+
 @functools.lru_cache(maxsize=None)
 def _affine_walk_vmapped(max_steps: int):
     """Cached jitted batched walk (a fresh jax.jit per call recompiles
     every invocation)."""
     return jax.jit(
         jax.vmap(
-            lambda w, s, a1, a2: _affine_walk_packed(
-                w, s, a1, a2, max_steps=max_steps
-            ),
-            in_axes=(2, 0, 0, 0),
+            lambda w, s, a1, a2: _affine_walk(w, s, a1, a2, max_steps=max_steps),
+            in_axes=(0, 0, 0, 0),
         )
     )
 
@@ -394,67 +356,28 @@ def _affine_walk_vmapped(max_steps: int):
 def affine_align_batch(pairs, m: int, k: int, open_: int, extend: int):
     """Batched affine-gap alignment: one (score, X, Y) per pair.
 
-    Production path: the Pallas Gotoh arrows kernel
-    (:func:`nw_tpu.ops.variants_pallas.affine_arrows_pallas_batch`) +
-    vmapped device walk; identical tie conventions to
-    :func:`affine_align` (M > IX > IY, open over extend).
+    The vmapped Gotoh fill emits per-cell state bits for a sub-batch, a
+    vmapped device walk follows them; identical tie conventions to
+    :func:`affine_align` (M > IX > IY, open over extend).  Sub-batches
+    are sized to :func:`nw_tpu.ops.fill_auto.arrow_budget_bytes`.
     """
-    import numpy as np
+    from nw_tpu.ops.fill_auto import chunked
 
+    return chunked(
+        _norm(pairs),
+        lambda sub: _affine_align_bucket(sub, m, k, open_, extend),
+    )
+
+
+def _affine_align_bucket(norm, m, k, open_, extend):
     from nw_tpu.ops.encode import encode_batch_u8
     from nw_tpu.ops.traceback import ops_to_strings_batch
-    from nw_tpu.ops.variants_pallas import affine_arrows_pallas_batch
 
-    norm = [
-        (a.encode() if isinstance(a, str) else bytes(a),
-         b.encode() if isinstance(b, str) else bytes(b))
-        for a, b in pairs
-    ]
-    # uint8 upload: engines cast on device; all outputs are
-    # lens/in_rect-gated (tests/test_encode_u8.py)
     tops, sides, l1, l2 = encode_batch_u8(norm)
-    interpret = jax.devices()[0].platform != "tpu"
-    if sides.shape[1] > 1024:
-        if not interpret:
-            # long-side batches of ANY size: the banded Gotoh traceback
-            # engine (checkpointed group re-fill; variants_banded.py).
-            # Small batches pad to the engine's 128-lane quantum —
-            # wasted lanes beat the per-pair scan's ~100x cliff
-            # (VERDICT r2 item 5).  Huge batches sub-split on the walk
-            # engine's batch*length word-slab budget
-            per_pair = 400 * (tops.shape[1] + sides.shape[1])
-            chunk = max(128, int(2e9 // per_pair) // 128 * 128)
-            if chunk < len(norm):
-                out = []
-                for i in range(0, len(norm), chunk):
-                    out.extend(
-                        affine_align_batch(
-                            norm[i : i + chunk], m, k, open_, extend
-                        )
-                    )
-                return out
-            from nw_tpu.ops.variants_banded import (
-                affine_traceback_banded_batch,
-            )
-
-            best, ops, n = affine_traceback_banded_batch(
-                tops, sides, l1, l2, m, k, open_, extend
-            )
-            strs = ops_to_strings_batch(ops, n, norm)
-            return [(int(best[b]), X, Y) for b, (X, Y) in enumerate(strs)]
-        # the Gotoh arrows kernel carries 9 scratch diagonals and is
-        # VMEM-bounded to ~1k sides; small long-pair batches take the
-        # scan engine
-        return [
-            affine_align(a, b, m, k, open_, extend) for a, b in norm
-        ]
-    words, best, states = affine_arrows_pallas_batch(
-        tops, sides, l1, l2, m, k, open_, extend, interpret=interpret
-    )
-    max_steps = int(tops.shape[1] + sides.shape[1])
-    ops, n = _affine_walk_vmapped(max_steps)(
-        words, states, jnp.asarray(l1), jnp.asarray(l2)
-    )
-    strs = ops_to_strings_batch(np.asarray(ops), np.asarray(n), norm)
-    best = np.asarray(best)
+    l1j, l2j = jnp.asarray(l1), jnp.asarray(l2)
+    out = _affine_fill_batch(tops, sides, m, k, open_, extend, l1j, l2j)
+    max_steps = max(1, int(tops.shape[1] + sides.shape[1]))
+    ops, n = _affine_walk_vmapped(max_steps)(out["arrows"], out["state"], l1j, l2j)
+    best, ops, n = jax.device_get((out["score"], ops, n))
+    strs = ops_to_strings_batch(ops, n, norm)
     return [(int(best[b]), X, Y) for b, (X, Y) in enumerate(strs)]

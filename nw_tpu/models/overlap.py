@@ -40,11 +40,6 @@ import numpy as np
 
 from nw_tpu.ops.fill_scan import NEG_INF
 
-# overlap_align_batch sub-batch sizing: the fill's diagonal-major uint8
-# arrows (B, K, N) held at once are capped to this many bytes
-ALIGN_ARROWS_HBM_BUDGET = 1_000_000_000
-
-
 @functools.partial(jax.jit, static_argnames=("with_arrows",))
 def overlap_fill_diag(
     top, side, m, k, d, len1=None, len2=None, with_arrows: bool = True
@@ -174,53 +169,6 @@ _overlap_fill_batch = jax.jit(
 )
 
 
-@functools.partial(jax.jit, static_argnames=("max_steps",))
-def _overlap_walk_diag(arrows, j0, i0, max_steps: int):
-    """Greedy overlap walk over diagonal-major uint8 arrows (one pair):
-    diag > left > up from (j0, i0) until row 0 or column 0.  Returns
-    (ops, n) in ops_to_strings' end->origin convention (OP_LEFT
-    consumes s1, OP_UP consumes s2)."""
-    from nw_tpu.ops.traceback import OP_DIAG, OP_LEFT, OP_NONE, OP_UP
-
-    def step(t, st):
-        i, j, n, ops, done = st
-        a = arrows[i + j, j]
-        active = ~done & (i > 0) & (j > 0) & (a != 0)
-        take_diag = active & ((a & 1) != 0)
-        take_left = active & ~take_diag & ((a & 2) != 0)
-        op = jnp.where(
-            take_diag, OP_DIAG,
-            jnp.where(take_left, OP_LEFT, OP_UP),
-        ).astype(jnp.int8)
-        ops = ops.at[t].set(jnp.where(active, op, jnp.int8(OP_NONE)))
-        i = i - jnp.where(take_diag | take_left, 1, 0)
-        j = j - jnp.where(active & ~take_left, 1, 0)
-        n = n + active.astype(jnp.int32)
-        return (i, j, n, ops, ~active | done)
-
-    ops0 = jnp.full((max_steps,), int(3), jnp.int8)  # OP_NONE
-    i, j, n, ops, _ = jax.lax.fori_loop(
-        0, max_steps, step,
-        (jnp.asarray(i0, jnp.int32), jnp.asarray(j0, jnp.int32),
-         jnp.int32(0), ops0, jnp.asarray(False)),
-    )
-    return ops, n, i, j
-
-
-@functools.lru_cache(maxsize=None)
-def _overlap_walk_vmapped(max_steps: int):
-    """Cached jitted batched walk (a fresh jax.jit per call recompiles
-    every invocation)."""
-    return jax.jit(
-        jax.vmap(
-            lambda a, jj, ii: _overlap_walk_diag(
-                a, jj, ii, max_steps=max_steps
-            ),
-            in_axes=(0, 0, 0),
-        )
-    )
-
-
 def overlap_traceback(
     arrows_diag: np.ndarray, argmax, top: bytes, side: bytes
 ) -> Tuple[bytes, bytes, Tuple[int, int]]:
@@ -275,50 +223,21 @@ def overlap_align(
     return int(out["score"]), X, Y, start, (j_end, i_end)
 
 
-def overlap_score_batch(pairs, m: int = 2, k: int = 1, d: int = 1):
-    """Best overlap score per pair (int32[B]).
-
-    Batched production path on TPU: the row-sweep Pallas kernel
-    (:func:`nw_tpu.ops.variants_rowsweep.overlap_scores_rowsweep_batch`)
-    when the bucket fits its VMEM plan (fill_auto.rowsweep_pick);
-    the banded kernel
-    (:func:`nw_tpu.ops.variants_banded.overlap_scores_banded_batch`)
-    at ANY side length beyond.  Elsewhere the vmapped ragged scan fill
-    (one compile per padded bucket, no per-pair cliff).
-    """
-    from nw_tpu.ops.encode import encode_batch_u8
-
-    norm = [
+def _norm(pairs):
+    return [
         (a.encode() if isinstance(a, str) else bytes(a),
          b.encode() if isinstance(b, str) else bytes(b))
         for a, b in pairs
     ]
-    # uint8 upload: engines cast on device; all outputs are
-    # lens/in_rect-gated (tests/test_encode_u8.py)
-    tops, sides, l1, l2 = encode_batch_u8(norm)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    from nw_tpu.ops.fill_auto import rowsweep_pick
 
-    rs = (
-        rowsweep_pick("overlap", tops.shape[1], sides.shape[1], len(norm))
-        if on_tpu else None
-    )
-    if rs is not None:
-        from nw_tpu.ops.variants_rowsweep import (
-            overlap_scores_rowsweep_batch,
-        )
 
-        return np.asarray(
-            overlap_scores_rowsweep_batch(
-                tops, sides, l1, l2, m, k, d, rows=rs[0], groups=rs[1]
-            )
-        )
-    if on_tpu:
-        from nw_tpu.ops.variants_banded import overlap_scores_banded_batch
+def overlap_score_batch(pairs, m: int = 2, k: int = 1, d: int = 1):
+    """Best overlap score per pair (int32[B]): the vmapped ragged scan
+    fill (one compile per padded bucket, no per-pair cliff; score-only,
+    so no per-cell state is stored)."""
+    from nw_tpu.ops.encode import encode_batch_u8
 
-        return np.asarray(
-            overlap_scores_banded_batch(tops, sides, l1, l2, m, k, d)
-        )
+    tops, sides, l1, l2 = encode_batch_u8(_norm(pairs))
     return np.asarray(
         overlap_scores_scan_batch(
             tops, sides, m, k, d, jnp.asarray(l1), jnp.asarray(l2)
@@ -334,99 +253,44 @@ def overlap_align_batch(pairs, m: int = 2, k: int = 1, d: int = 1):
     Batched fill + vmapped device walk (one compile per padded bucket);
     host only renders the byte strings through the native batch
     builder.  The batched fill materializes diagonal-major uint8 arrows
-    (B, K, N) — ~200 MB per 10 kb pair — so long-side batches are
-    auto-split into sub-batches whose arrows fit ~1 GB of HBM at a
-    time (one compile per sub-batch shape, not per pair)."""
-    norm = [
-        (a.encode() if isinstance(a, str) else bytes(a),
-         b.encode() if isinstance(b, str) else bytes(b))
-        for a, b in pairs
-    ]
-    if not norm:
-        return []
-    A = max((len(a) for a, _ in norm), default=0)
-    Bs = max((len(b) for _, b in norm), default=0)
-    if Bs > 2048 and jax.devices()[0].platform == "tpu":
-        # long sides on TPU: the banded checkpointed walk engine — the
-        # full arrows are never materialized (group re-fills), so the
-        # LENGTH axis is unbounded; the BATCH axis still is not (the
-        # pass-2 word slab and checkpoint stack scale as batch*length),
-        # so big batches sub-split on the walk engine's budget
-        per_pair = 200 * (A + Bs)  # word slab + checkpoints, ~bytes
-        chunk = max(128, int(2e9 // max(per_pair, 1)) // 128 * 128)
-        if chunk < len(norm):
-            out = []
-            for i in range(0, len(norm), chunk):
-                out.extend(
-                    _overlap_align_banded_bucket(
-                        norm[i : i + chunk], m, k, d
-                    )
-                )
-            return out
-        return _overlap_align_banded_bucket(norm, m, k, d)
-    per_pair = (A + Bs + 1) * (Bs + 1)  # arrows bytes (uint8)
-    chunk = max(1, int(ALIGN_ARROWS_HBM_BUDGET // max(per_pair, 1)))
-    if chunk < len(norm):
-        out = []
-        for i in range(0, len(norm), chunk):
-            out.extend(_overlap_align_bucket(norm[i : i + chunk], m, k, d))
-        return out
-    return _overlap_align_bucket(norm, m, k, d)
+    (B, K, N) — ~200 MB per 10 kb pair — so batches are split into
+    sub-batches whose arrows fit
+    :func:`nw_tpu.ops.fill_auto.arrow_budget_bytes`."""
+    from nw_tpu.ops.fill_auto import chunked
 
-
-def _overlap_align_banded_bucket(norm, m, k, d):
-    """One walk-engine-sized sub-batch of long-side overlap alignments
-    (see overlap_align_batch)."""
-    from nw_tpu.ops.encode import encode_batch_u8
-    from nw_tpu.ops.traceback import ops_to_strings_batch
-    from nw_tpu.ops.variants_banded import overlap_traceback_banded_batch
-
-    # uint8 upload: engines cast on device; all outputs are
-    # lens/in_rect-gated (tests/test_encode_u8.py)
-    tops, sides, l1, l2 = encode_batch_u8(norm)
-    best, jst, ist, j_end, i_end, ops, n = (
-        overlap_traceback_banded_batch(tops, sides, l1, l2, m, k, d)
+    return chunked(
+        _norm(pairs), lambda sub: _overlap_align_bucket(sub, m, k, d)
     )
-    trunc = [
-        (s1[: int(ist[b])], s2[: int(jst[b])])
-        for b, (s1, s2) in enumerate(norm)
-    ]
-    strs = ops_to_strings_batch(ops, n, trunc)
-    return [
-        (int(best[b]), X, Y, (int(j_end[b]), int(i_end[b])),
-         (int(jst[b]), int(ist[b])))
-        for b, (X, Y) in enumerate(strs)
-    ]
 
 
 def _overlap_align_bucket(norm, m, k, d):
-    """One HBM-sized sub-batch of overlap alignments (see
+    """One memory-sized sub-batch of overlap alignments (see
     overlap_align_batch)."""
     from nw_tpu.ops.encode import encode_batch_u8
-    from nw_tpu.ops.traceback import ops_to_strings_batch
+    from nw_tpu.ops.traceback import ops_to_strings_batch, walk_until_zero_batch
 
-    # uint8 upload: engines cast on device; all outputs are
-    # lens/in_rect-gated (tests/test_encode_u8.py)
+    # uint8 upload: the fill casts on device and all outputs are
+    # lens-gated (tests/test_encode_u8.py)
     tops, sides, l1, l2 = encode_batch_u8(norm)
     out = _overlap_fill_batch(
         tops, sides, m, k, d, jnp.asarray(l1), jnp.asarray(l2)
     )
-    arg = np.asarray(out["argmax"])
-    j_end, i_end = arg[:, 0], arg[:, 1]
     max_steps = int(tops.shape[1] + sides.shape[1])
     if max_steps == 0:
         return [(0, b"", b"", (0, 0), (0, 0)) for _ in norm]
-    ops, n, i_st, j_st = _overlap_walk_vmapped(max_steps)(
-        out["arrows"], jnp.asarray(j_end), jnp.asarray(i_end)
+    arg = out["argmax"]
+    ops, n, i_st, j_st = walk_until_zero_batch(
+        out["arrows"], arg[:, 0], arg[:, 1], max_steps
     )
-    ops, n = np.asarray(ops), np.asarray(n)
-    i_st, j_st = np.asarray(i_st), np.asarray(j_st)
+    best, arg, ops, n, i_st, j_st = jax.device_get(
+        (out["score"], arg, ops, n, i_st, j_st)
+    )
+    j_end, i_end = arg[:, 0], arg[:, 1]
     trunc = [
         (s1[: int(i_end[b])], s2[: int(j_end[b])])
         for b, (s1, s2) in enumerate(norm)
     ]
     strs = ops_to_strings_batch(ops, n, trunc)
-    best = np.asarray(out["score"])
     return [
         (int(best[b]), X, Y, (int(j_st[b]), int(i_st[b])),
          (int(j_end[b]), int(i_end[b])))

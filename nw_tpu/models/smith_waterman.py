@@ -23,8 +23,12 @@ from nw_tpu.ops.fill_scan import NEG_INF
 
 
 @functools.partial(jax.jit, static_argnames=("with_arrows",))
-def sw_fill_diag(top, side, m, k, d, with_arrows: bool = True):
+def sw_fill_diag(top, side, m, k, d, len1=None, len2=None, with_arrows: bool = True):
     """Local-alignment fill along anti-diagonals.
+
+    ``len1``/``len2`` are the true lengths of a padded pair (default:
+    the array lengths); cells outside the true rectangle are zero and
+    arrow-free, so padding never reaches the maximum.
 
     Returns dict with ``score`` (best local score, >= 0), ``argmax``
     (int32[2]: (j, i) cell of the maximum — first hit in diagonal order,
@@ -34,6 +38,8 @@ def sw_fill_diag(top, side, m, k, d, with_arrows: bool = True):
     B = side.shape[0]
     N = B + 1
     K = A + B + 1
+    len1 = jnp.asarray(A if len1 is None else len1, jnp.int32)
+    len2 = jnp.asarray(B if len2 is None else len2, jnp.int32)
 
     m = jnp.asarray(m, jnp.int32)
     k = jnp.asarray(k, jnp.int32)
@@ -45,7 +51,7 @@ def sw_fill_diag(top, side, m, k, d, with_arrows: bool = True):
     top_ext = jnp.concatenate([pad, top_rev, pad])
 
     j_idx = jnp.arange(N, dtype=jnp.int32)
-    vary0 = (top.sum() + side.sum()).astype(jnp.int32) * 0
+    vary0 = (top.sum() + side.sum() + len1 + len2).astype(jnp.int32) * 0
 
     zeros = jnp.zeros((N,), jnp.int32) + vary0
     # row 0 / col 0 are all zero in SW; diagonal 0 likewise
@@ -55,8 +61,9 @@ def sw_fill_diag(top, side, m, k, d, with_arrows: bool = True):
     def step(carry, kk):
         prev, prev2, best, arg = carry
         i_idx = kk - j_idx
-        valid = (i_idx >= 0) & (i_idx <= A)
-        interior = valid & (j_idx >= 1) & (i_idx >= 1)
+        interior = (
+            (j_idx >= 1) & (j_idx <= len2) & (i_idx >= 1) & (i_idx <= len1)
+        )
 
         ch_top = jax.lax.dynamic_slice(top_ext, (N + A - kk,), (N,))
         sub = jnp.where(ch_top == side_sh, m, -k)
@@ -97,12 +104,20 @@ def sw_fill_diag(top, side, m, k, d, with_arrows: bool = True):
     return out
 
 
-# vmapped uniform-length array oracle (kept under a distinct name; the
-# public sw_score_batch below takes byte pairs)
-sw_score_array_batch = jax.jit(
+# ragged batched fills (padded to a bucket; lens mask the table)
+sw_scores_scan_batch = jax.jit(
     jax.vmap(
-        lambda t, s, m, k, d: sw_fill_diag(t, s, m, k, d, with_arrows=False)["score"],
-        in_axes=(0, 0, None, None, None),
+        lambda t, s, m, k, d, l1, l2: sw_fill_diag(
+            t, s, m, k, d, l1, l2, with_arrows=False
+        )["score"],
+        in_axes=(0, 0, None, None, None, 0, 0),
+    )
+)
+
+_sw_fill_batch = jax.jit(
+    jax.vmap(
+        lambda t, s, m, k, d, l1, l2: sw_fill_diag(t, s, m, k, d, l1, l2),
+        in_axes=(0, 0, None, None, None, 0, 0),
     )
 )
 
@@ -149,198 +164,60 @@ def sw_align(s1: str | bytes, s2: str | bytes, m: int = 2, k: int = 1, d: int = 
     return int(out["score"]), X, Y, start
 
 
-def sw_score_batch(pairs, m: int = 2, k: int = 1, d: int = 1):
-    """Best local-alignment score per pair (int32[B]).
-
-    Batched production path: the Pallas batch-in-lanes kernel
-    (:func:`nw_tpu.ops.variants_pallas.sw_scores_pallas_batch`, 110
-    GCUPS/chip at 150bp) on TPU; the same kernel interpreted elsewhere.
-    """
-    import jax
-
-    from nw_tpu.ops.encode import encode, encode_batch_u8
-    from nw_tpu.ops.variants_pallas import sw_scores_pallas_batch
-
-    norm = [
+def _norm(pairs):
+    return [
         (a.encode() if isinstance(a, str) else bytes(a),
          b.encode() if isinstance(b, str) else bytes(b))
         for a, b in pairs
     ]
-    # uint8 upload: engines cast on device; all outputs are
-    # lens/in_rect-gated (tests/test_encode_u8.py)
-    tops, sides, l1, l2 = encode_batch_u8(norm)
-    interpret = jax.devices()[0].platform != "tpu"
-    if sides.shape[1] > 4096 and not interpret:
-        # long-side batches of ANY size: the banded kernel (any side
-        # length, batch-in-lanes; ops/variants_banded.py — small
-        # batches pad to the 128-lane quantum, still far faster than
-        # the per-pair scan; VERDICT r2 item 5)
-        from nw_tpu.ops.variants_banded import sw_scores_banded_batch
 
-        return np.asarray(
-            sw_scores_banded_batch(tops, sides, l1, l2, m, k, d)
-        )
-    if sides.shape[1] > 4096:
-        # the flat score kernel's rolling diagonals outgrow VMEM beyond
-        # ~4k sides (probed); small long-pair batches take the per-pair
-        # scan engine
-        return np.array(
-            [
-                int(
-                    sw_fill_diag(
-                        jnp.asarray(encode(a)), jnp.asarray(encode(b)),
-                        m, k, d, with_arrows=False,
-                    )["score"]
-                )
-                for a, b in norm
-            ],
-            np.int32,
-        )
-    interpret = jax.devices()[0].platform != "tpu"
-    from nw_tpu.ops.fill_auto import rowsweep_pick
 
-    rs = (
-        None if interpret else
-        rowsweep_pick("sw", tops.shape[1], sides.shape[1], len(norm))
-    )
-    if rs is not None:
-        from nw_tpu.ops.variants_rowsweep import sw_scores_rowsweep_batch
+def sw_score_batch(pairs, m: int = 2, k: int = 1, d: int = 1):
+    """Best local-alignment score per pair (int32[B]): the ragged scan
+    fill vmapped over the batch in one dispatch (score-only, so no
+    per-cell state is stored)."""
+    from nw_tpu.ops.encode import encode_batch_u8
 
-        return np.asarray(
-            sw_scores_rowsweep_batch(
-                tops, sides, l1, l2, m, k, d, rows=rs[0], groups=rs[1]
-            )
-        )
+    tops, sides, l1, l2 = encode_batch_u8(_norm(pairs))
     return np.asarray(
-        sw_scores_pallas_batch(tops, sides, l1, l2, m, k, d, interpret=interpret)
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("max_steps",))
-def _sw_walk_packed(words, j0, i0, max_steps: int):
-    """Greedy local-alignment walk over packed arrow words (one pair).
-
-    Starts at (j0, i0), follows diag > left > up (sw_traceback order),
-    stops at the first zero-arrow cell.  Returns (ops, n) in
-    ops_to_strings' corner->origin convention.
-    """
-    from nw_tpu.ops.traceback import OP_DIAG, OP_LEFT, OP_NONE, OP_UP
-
-    def step(t, st):
-        i, j, n, ops, done = st
-        kk = i + j
-        a = (words[kk >> 2, j] >> ((kk & 3) * 8)) & 0xFF
-        active = jnp.logical_and(~done, a != 0)
-        take_diag = active & ((a & 1) != 0)
-        take_left = active & ~take_diag & ((a & 2) != 0)
-        take_up = active & ~take_diag & ~take_left & ((a & 4) != 0)
-        op = jnp.where(
-            take_diag, OP_DIAG, jnp.where(take_left, OP_LEFT, OP_UP)
-        ).astype(jnp.int8)
-        ops = ops.at[t].set(jnp.where(active, op, jnp.int8(OP_NONE)))
-        i = i - jnp.where(take_diag | take_left, 1, 0)
-        j = j - jnp.where(take_diag | take_up, 1, 0)
-        n = n + active.astype(jnp.int32)
-        done = ~active
-        return (i, j, n, ops, done)
-
-    ops0 = jnp.full((max_steps,), int(3), jnp.int8)  # OP_NONE
-    i, j, n, ops, _ = jax.lax.fori_loop(
-        0, max_steps,
-        step,
-        (jnp.asarray(i0, jnp.int32), jnp.asarray(j0, jnp.int32),
-         jnp.int32(0), ops0, jnp.asarray(False)),
-    )
-    return ops, n, i, j
-
-
-@functools.lru_cache(maxsize=None)
-def _sw_walk_vmapped(max_steps: int):
-    """Cached jitted batched walk (a fresh jax.jit per call recompiles
-    every invocation)."""
-    return jax.jit(
-        jax.vmap(
-            lambda w, jj, ii: _sw_walk_packed(w, jj, ii, max_steps=max_steps),
-            in_axes=(2, 0, 0),
-        )
+        sw_scores_scan_batch(tops, sides, m, k, d, jnp.asarray(l1), jnp.asarray(l2))
     )
 
 
 def sw_align_batch(pairs, m: int = 2, k: int = 1, d: int = 1):
     """Batched local alignment with strings: one (score, X, Y, start)
-    per pair, identical to :func:`sw_align` (scan tie rules).
+    per pair, identical to :func:`sw_align`.
 
-    Production path: the Pallas SW arrows+argmax kernel
-    (:func:`nw_tpu.ops.variants_pallas.sw_arrows_pallas_batch`) plus a
-    vmapped device walk; host only renders the byte strings.
+    The vmapped scan fill emits diagonal-major uint8 arrows for a whole
+    sub-batch, a vmapped device walk follows them, and the host only
+    renders the byte strings; sub-batches are sized to
+    :func:`nw_tpu.ops.fill_auto.arrow_budget_bytes`.
     """
+    from nw_tpu.ops.fill_auto import chunked
+
+    return chunked(_norm(pairs), lambda sub: _sw_align_bucket(sub, m, k, d))
+
+
+def _sw_align_bucket(norm, m, k, d):
     from nw_tpu.ops.encode import encode_batch_u8
-    from nw_tpu.ops.variants_pallas import sw_arrows_pallas_batch
+    from nw_tpu.ops.traceback import ops_to_strings_batch, walk_until_zero_batch
 
-    norm = [
-        (a.encode() if isinstance(a, str) else bytes(a),
-         b.encode() if isinstance(b, str) else bytes(b))
-        for a, b in pairs
-    ]
-    # uint8 upload: engines cast on device; all outputs are
-    # lens/in_rect-gated (tests/test_encode_u8.py)
     tops, sides, l1, l2 = encode_batch_u8(norm)
-    interpret = jax.devices()[0].platform != "tpu"
-    if sides.shape[1] > 2048:
-        if not interpret:
-            # long-side batches of ANY size: the banded SW traceback
-            # engine (checkpointed group re-fill; variants_banded.py).
-            # Small batches pad to the engine's 128-lane quantum —
-            # wasted lanes beat the per-pair scan's ~100x cliff
-            # (VERDICT r2 item 5; 32 x 3kb measured 380 s on the scan
-            # path vs ~3 s banded).  The LENGTH axis is unbounded but
-            # the walk engine's word slab + checkpoint stack scale as
-            # batch*length — huge batches sub-split on its budget
-            per_pair = 200 * (tops.shape[1] + sides.shape[1])
-            chunk = max(128, int(2e9 // per_pair) // 128 * 128)
-            if chunk < len(norm):
-                out = []
-                for i in range(0, len(norm), chunk):
-                    out.extend(
-                        sw_align_batch(norm[i : i + chunk], m, k, d)
-                    )
-                return out
-            from nw_tpu.ops.variants_banded import sw_traceback_banded_batch
-
-            best, jst, ist, j_end, i_end, ops, n = sw_traceback_banded_batch(
-                tops, sides, l1, l2, m, k, d
-            )
-            from nw_tpu.ops.traceback import ops_to_strings_batch
-
-            ist, jst = np.asarray(ist), np.asarray(jst)
-            trunc = [
-                (s1[: int(ist[b])], s2[: int(jst[b])])
-                for b, (s1, s2) in enumerate(norm)
-            ]
-            strs = ops_to_strings_batch(np.asarray(ops), np.asarray(n), trunc)
-            return [
-                (int(best[b]), X, Y, (int(j_end[b]), int(i_end[b])))
-                for b, (X, Y) in enumerate(strs)
-            ]
-        # small long-pair batches: the per-pair scan engine
-        return [sw_align(a, b, m, k, d) for a, b in norm]
-    words, best, j0, i0 = sw_arrows_pallas_batch(
-        tops, sides, l1, l2, m, k, d, interpret=interpret
+    out = _sw_fill_batch(tops, sides, m, k, d, jnp.asarray(l1), jnp.asarray(l2))
+    arg = out["argmax"]
+    max_steps = max(1, int(tops.shape[1] + sides.shape[1]))
+    ops, n, i_st, j_st = walk_until_zero_batch(
+        out["arrows"], arg[:, 0], arg[:, 1], max_steps
     )
-    max_steps = int(tops.shape[1] + sides.shape[1])
-    ops, n, i_end, j_end = _sw_walk_vmapped(max_steps)(words, j0, i0)
-    best = np.asarray(best)
-    ops, n = np.asarray(ops), np.asarray(n)
-    i0n, j0n = np.asarray(i0), np.asarray(j0)
-    i_end, j_end = np.asarray(i_end), np.asarray(j_end)
-    from nw_tpu.ops.traceback import ops_to_strings_batch
-
+    best, arg, ops, n, i_st, j_st = jax.device_get(
+        (out["score"], arg, ops, n, i_st, j_st)
+    )
     trunc = [
-        (s1[: int(i0n[b])], s2[: int(j0n[b])])
+        (s1[: int(arg[b, 1])], s2[: int(arg[b, 0])])
         for b, (s1, s2) in enumerate(norm)
     ]
     strs = ops_to_strings_batch(ops, n, trunc)
     return [
-        (int(best[b]), X, Y, (int(j_end[b]), int(i_end[b])))
+        (int(best[b]), X, Y, (int(j_st[b]), int(i_st[b])))
         for b, (X, Y) in enumerate(strs)
     ]

@@ -2,8 +2,11 @@
 
 * :mod:`nw_tpu.ops.encode` — sequence encoding / padding / bucketing.
 * :mod:`nw_tpu.ops.fill_scan` — anti-diagonal DP fill as a ``lax.scan``.
-* :mod:`nw_tpu.ops.fill_pallas` — Pallas TPU wavefront fill kernel.
-* :mod:`nw_tpu.ops.fill_tiled` — 2-D block-wavefront fill for huge pairs.
+* :mod:`nw_tpu.ops.fill_rows` — one-lane-per-pair row-sweep GPU kernel
+  (Pallas through Triton).
+* :mod:`nw_tpu.ops.fill_auto` — the engine router.
+* :mod:`nw_tpu.ops.checkpoint_traceback` — O(N)-memory exact traceback
+  for huge pairs.
 * :mod:`nw_tpu.ops.traceback` — vectorized single-path backward walk.
 * :mod:`nw_tpu.ops.pathcount` — O(M*N) optimal-alignment counting and
   optimal-path marking (replaces exponential DFS when only counts/marks

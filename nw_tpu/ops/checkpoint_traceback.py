@@ -2,35 +2,32 @@
 
 The reference materializes 32 B of walk state per cell
 (walk-table.h:48-57) and cannot trace back a pair whose table outgrows
-RAM; this framework's full-arrow path stores 1 byte per 4 cells but a
-100 kb x 100 kb pair is still ~10^10 cells = 2.5 GB of packed words —
-too much to keep around per pair at batch scale, and the Hirschberg
-fallback (ops/hirschberg.py) returns only *an* optimal alignment, not
-the one the reference DFS emits first.
+RAM; the full-arrow path stores 1 byte per cell, so a 100 kb x 100 kb
+pair would still need ~20 GB of arrows, and the Hirschberg route
+(ops/hirschberg.py) returns only *an* optimal alignment, not the one
+the reference DFS emits first.
 
 This module recovers the exact first-emitted alignment (greedy
 diag > left > up over the arrows, needleman-wunsch.c:305-324) in
-O(K*N/C + C*N) memory via the classic two-pass checkpoint scheme:
+O(K*N/C + C*N) memory with the classic two-pass checkpoint scheme,
+both passes being ``lax.scan`` steps of :mod:`nw_tpu.ops.fill_scan`'s
+diagonal recurrence:
 
-1. **Checkpoint pass** (:func:`_ckpt_fill`): one fold-layout wavefront
-   fill that dumps the rolling state (prev diagonal + pre-shifted
-   prev2) to HBM every C diagonals — K/C checkpoints of 2 diagonals
-   each.
-2. **Backward block pass** (:func:`traceback_checkpointed`): walking
-   from the corner, each C-diagonal block is *re-filled* from its
-   checkpoint (emitting packed arrow words for just that block) and
-   walked greedily on device; the walk exits the block after <= C
-   steps and continues from the previous checkpoint.  Everything runs
-   inside one ``lax.scan`` — a single device dispatch per pair.
+1. **Checkpoint pass**: one score wavefront that keeps the rolling
+   state (the two previous diagonals) entering every block of C
+   diagonals — K/C checkpoints of 2 diagonals each — and captures the
+   corner score on the way.
+2. **Backward block pass**: walking from the corner, each C-diagonal
+   block is *re-filled* from its checkpoint (emitting uint8 arrows for
+   just that block) and walked greedily; the walk leaves the block
+   after <= C steps and continues in the previous block.  Blocks above
+   the walk head are skipped.
 
 Total fill work is 2x a plain fill; the arrow storage live at any
-moment is one C x N block of packed words.  The rolling-character
-register at a checkpoint is not stored: ``ch[j] = top[kk0-1-j]`` is
-reconstructed with a gather at refill time.
-
-The emitted op codes match :func:`nw_tpu.ops.traceback.traceback_greedy`
-(OP_DIAG/OP_LEFT/OP_UP, corner -> origin order), so
-``traceback.ops_to_strings`` renders the aligned strings.
+moment is one C x N block.  The emitted op codes match
+:func:`nw_tpu.ops.traceback.traceback_greedy` (OP_DIAG/OP_LEFT/OP_UP,
+corner -> origin order), so ``traceback.ops_to_strings`` renders the
+aligned strings.
 """
 
 from __future__ import annotations
@@ -39,257 +36,22 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from nw_tpu.ops.fill_pallas_single import (
-    LANES,
-    NEG_INF,
-    _round_up,
-    fold_pair,
-    fold_shift_j,
-)
-
-ARROW_CHUNK = 32  # diagonals per refill grid step (8 packed int32 rows)
-
-
-# ---------------------------------------------------------------------------
-# Pass 1: fold-layout fill dumping state checkpoints every C diagonals
-# ---------------------------------------------------------------------------
-
-
-def _make_ckpt_kernel(R: int, A_r: int, C: int):
-    def kernel(mkd_ref, tops_ref, sides_ref, ckpt_ref, prev_ref, prev2sh_ref, ch_ref):
-        """Grid (S,), S = K_pad // C.  ckpt_ref block: (1, 2, R, 128).
-
-        Checkpoint c is the state *entering* diagonal block
-        [c*C, (c+1)*C): row 0 = prev (diagonal c*C - 1), row 1 =
-        pre-shifted prev2.  Checkpoint 0 is the analytic init.
-        """
-        c = pl.program_id(0)
-        m = mkd_ref[0, 0]
-        kmis = mkd_ref[0, 1]
-        d = mkd_ref[0, 2]
-
-        r_iota = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 0)
-        l_iota = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 1)
-        j_glob = r_iota * LANES + l_iota
-        lane_row = jax.lax.broadcasted_iota(jnp.int32, (1, LANES), 1)
-
-        @pl.when(c == 0)
-        def _init():
-            prev_ref[...] = jnp.where(j_glob == 0, jnp.int32(0), jnp.int32(NEG_INF))
-            prev2sh_ref[...] = jnp.full((R, LANES), NEG_INF, jnp.int32)
-            ch_ref[...] = jnp.full((R, LANES), -4, jnp.int32)
-
-        # dump the block-entry state
-        ckpt_ref[0, 0, :, :] = prev_ref[...]
-        ckpt_ref[0, 1, :, :] = prev2sh_ref[...]
-
-        side_ch = sides_ref[...]
-
-        def step(t, _):
-            kk = c * C + t
-
-            @pl.when(kk >= 1)
-            def _():
-                prev = prev_ref[...]
-                x = kk - 1
-                xr = jnp.minimum(x // LANES, A_r - 1)
-                row = tops_ref[pl.ds(xr, 1), :]
-                new_ch = jnp.sum(jnp.where(lane_row == x % LANES, row, 0))
-                ch = fold_shift_j(ch_ref[...], new_ch, l_iota, j_glob)
-                ch_ref[...] = ch
-                sub = jnp.where(ch == side_ch, m, -kmis)
-
-                prev_sh = fold_shift_j(prev, jnp.int32(NEG_INF), l_iota, j_glob)
-                score = jnp.maximum(
-                    prev2sh_ref[...] + sub, jnp.maximum(prev_sh, prev) - d
-                )
-                prev2sh_ref[...] = prev_sh
-                prev_ref[...] = score
-
-            return 0
-
-        jax.lax.fori_loop(0, C, step, 0)
-
-    return kernel
-
-
-def _ckpt_fill(top_fold, side_fold, m, k, d, R, A_r, S, C, interpret):
-    mkd = jnp.array([[m, k, d]], jnp.int32)
-    return pl.pallas_call(
-        _make_ckpt_kernel(R, A_r, C),
-        out_shape=jax.ShapeDtypeStruct((S, 2, R, LANES), jnp.int32),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=(S,),
-            in_specs=[
-                pl.BlockSpec((1, 3), lambda c: (0, 0), memory_space=pltpu.SMEM),
-                pl.BlockSpec((A_r, LANES), lambda c: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((R, LANES), lambda c: (0, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, 2, R, LANES), lambda c: (c, 0, 0, 0), memory_space=pltpu.VMEM
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((R, LANES), jnp.int32),  # prev diagonal
-                pltpu.VMEM((R, LANES), jnp.int32),  # shift(prev2) diagonal
-                pltpu.VMEM((R, LANES), jnp.int32),  # rolling top chars
-            ],
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(mkd, top_fold, side_fold)
-
-
-# ---------------------------------------------------------------------------
-# Pass 2: refill one C-diagonal block from its checkpoint, packed arrows
-# ---------------------------------------------------------------------------
-
-
-def _make_refill_kernel(R: int, A_r: int):
-    def kernel(
-        mkd_ref, state_ref, ch0_ref, tops_ref, sides_ref, packed_ref,
-        prev_ref, prev2sh_ref, ch_ref, pack_ref
-    ):
-        """Grid (C // ARROW_CHUNK,).  mkd: (1, 4) = m, k, d, kk_base.
-
-        Identical recurrence/packing to fill_pallas_single's arrows
-        kernel (natural boundaries, carried shift, 4-diagonals-per-word
-        packing) but seeded from a checkpoint instead of diagonal 0.
-        """
-        c = pl.program_id(0)
-        m = mkd_ref[0, 0]
-        kmis = mkd_ref[0, 1]
-        d = mkd_ref[0, 2]
-        kk_base = mkd_ref[0, 3]
-
-        r_iota = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 0)
-        l_iota = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 1)
-        j_glob = r_iota * LANES + l_iota
-        lane_row = jax.lax.broadcasted_iota(jnp.int32, (1, LANES), 1)
-
-        @pl.when(c == 0)
-        def _init():
-            prev_ref[...] = state_ref[0, :, :]
-            prev2sh_ref[...] = state_ref[1, :, :]
-            ch_ref[...] = ch0_ref[...]
-
-        side_ch = sides_ref[...]
-
-        def step(t, _):
-            kk = kk_base + c * ARROW_CHUNK + t
-
-            @pl.when(kk >= 1)
-            def _():
-                prev = prev_ref[...]
-                x = kk - 1
-                xr = jnp.minimum(x // LANES, A_r - 1)
-                row = tops_ref[pl.ds(xr, 1), :]
-                new_ch = jnp.sum(jnp.where(lane_row == x % LANES, row, 0))
-                ch = fold_shift_j(ch_ref[...], new_ch, l_iota, j_glob)
-                ch_ref[...] = ch
-                sub = jnp.where(ch == side_ch, m, -kmis)
-
-                prev_sh = fold_shift_j(prev, jnp.int32(NEG_INF), l_iota, j_glob)
-                cand_d = prev2sh_ref[...] + sub
-                score = jnp.maximum(cand_d, jnp.maximum(prev_sh, prev) - d)
-                prev2sh_ref[...] = prev_sh
-                prev_ref[...] = score
-
-                score_d = score + d
-                arrows = (
-                    (cand_d == score).astype(jnp.int32)
-                    + (prev == score_d).astype(jnp.int32) * 2
-                    + (prev_sh == score_d).astype(jnp.int32) * 4
-                )
-                r = jnp.bitwise_and(t, 3)
-                word = arrows << (r * 8)
-
-                @pl.when(r == 0)
-                def _():
-                    pack_ref[...] = word
-
-                @pl.when(r != 0)
-                def _():
-                    pack_ref[...] = pack_ref[...] | word
-
-                @pl.when(r == 3)
-                def _():
-                    packed_ref[pl.ds(t // 4, 1), :, :] = pack_ref[...][None]
-
-            @pl.when(kk == 0)
-            def _():
-                pack_ref[...] = jnp.zeros((R, LANES), jnp.int32)
-
-            return 0
-
-        jax.lax.fori_loop(0, ARROW_CHUNK, step, 0)
-
-    return kernel
-
-
-def _refill_block(
-    state, ch0, top_fold, side_fold, m, k, d, kk_base, R, A_r, C, interpret
-):
-    mkd = jnp.concatenate(
-        [jnp.array([m, k, d], jnp.int32), jnp.asarray(kk_base, jnp.int32)[None]]
-    )[None]
-    return pl.pallas_call(
-        _make_refill_kernel(R, A_r),
-        out_shape=jax.ShapeDtypeStruct((C // 4, R, LANES), jnp.int32),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=0,
-            grid=(C // ARROW_CHUNK,),
-            in_specs=[
-                pl.BlockSpec((1, 4), lambda c: (0, 0), memory_space=pltpu.SMEM),
-                pl.BlockSpec((2, R, LANES), lambda c: (0, 0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((R, LANES), lambda c: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((A_r, LANES), lambda c: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((R, LANES), lambda c: (0, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (ARROW_CHUNK // 4, R, LANES),
-                lambda c: (c, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((R, LANES), jnp.int32),
-                pltpu.VMEM((R, LANES), jnp.int32),
-                pltpu.VMEM((R, LANES), jnp.int32),
-                pltpu.VMEM((R, LANES), jnp.int32),
-            ],
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(mkd, state, ch0, top_fold, side_fold)
-
-
-# ---------------------------------------------------------------------------
-# Driver: one lax.scan over blocks, corner -> origin
-# ---------------------------------------------------------------------------
+from nw_tpu.ops.fill_scan import _diag_step, _init_diags, _prep, _scalars
+from nw_tpu.ops.traceback import OP_DIAG, OP_LEFT, OP_NONE, OP_UP
 
 
 def auto_block_diagonals(A: int, B: int) -> int:
-    """Memory-optimal C: checkpoints cost 8*K*N/C bytes, the live block
-    C*N bytes — minimized at C = sqrt(8K), rounded to the refill grid
-    granularity (and to >= 512 so grid overhead stays negligible)."""
-    K = A + B + 1
-    C = int((8 * K) ** 0.5)
-    return max(512, _round_up(C, ARROW_CHUNK * 4))
+    """Memory-optimal C: checkpoints cost 8*N*K/C bytes (two int32
+    diagonals per block), the live arrow block C*N bytes — minimized at
+    C = sqrt(8K)."""
+    return max(16, int((8 * (A + B + 1)) ** 0.5))
 
 
-@functools.partial(
-    jax.jit, static_argnames=("block_diagonals", "interpret")
-)
+@functools.partial(jax.jit, static_argnames=("block_diagonals",))
 def traceback_checkpointed(
     top, side, m, k, d, len1=None, len2=None,
-    block_diagonals: int | None = None, interpret: bool = False,
+    block_diagonals: int | None = None,
 ):
     """Exact greedy-first traceback of ONE huge pair in O(K*N/C) memory.
 
@@ -299,89 +61,85 @@ def traceback_checkpointed(
       block_diagonals: C — diagonals re-filled per backward block
         (default: the memory-optimal sqrt(8K)).
     Returns:
-      (ops int8[A+B], n int32) — op codes corner -> origin exactly as
-      :func:`nw_tpu.ops.traceback.traceback_greedy` (and therefore the
-      reference DFS's first emission, needleman-wunsch.c:305-324).
+      (ops int8[A+B], n int32, score int32) — op codes corner -> origin
+      exactly as :func:`nw_tpu.ops.traceback.traceback_greedy` (and
+      therefore the reference DFS's first emission,
+      needleman-wunsch.c:305-324), and the optimal score.
     """
-    from nw_tpu.ops.traceback import OP_DIAG, OP_LEFT, OP_NONE, OP_UP
-
     A = top.shape[0]
     B = side.shape[0]
-    l1 = jnp.asarray(A if len1 is None else len1, jnp.int32)
-    l2 = jnp.asarray(B if len2 is None else len2, jnp.int32)
-
+    l1, l2, m, k, d = _scalars(len1, len2, A, B, m, k, d)
     C = block_diagonals or auto_block_diagonals(A, B)
-    assert C % ARROW_CHUNK == 0 and C % 4 == 0
-    N_pad = _round_up(B + 1, LANES)
-    R = N_pad // LANES
-    A_r = _round_up(max(A, 1), LANES) // LANES
-    K_pad = _round_up(A + B + 1, C)
-    S = K_pad // C
+    K = A + B + 1
+    S = max(1, -(-(K - 1) // C))  # blocks over diagonals 1 .. K-1
+    side_sh, top_ext = _prep(top, side)
+    diag0, prev2_0, vary0 = _init_diags(top, side, l1, l2)
+    k_corner = l1 + l2
+
+    def fill_block(prev, prev2, lo, emit_arrows):
+        def step(carry, t):
+            prev, prev2 = carry
+            score, arrows = _diag_step(
+                prev, prev2, lo + t, side_sh, top_ext, A, m, k, d
+            )
+            if emit_arrows:
+                return (score, prev), arrows
+            return (score, prev), jax.lax.dynamic_index_in_dim(
+                score, l2, keepdims=False
+            )
+
+        return jax.lax.scan(step, (prev, prev2), jnp.arange(C, dtype=jnp.int32))
+
+    # ---- pass 1: checkpoints entering each block, corner capture
+    def block_fwd(carry, b):
+        prev, prev2, cap = carry
+        lo = 1 + b * C
+        (nprev, nprev2), row_l2 = fill_block(prev, prev2, lo, False)
+        t = k_corner - lo
+        cap = jnp.where(
+            (t >= 0) & (t < C), row_l2[jnp.clip(t, 0, C - 1)], cap
+        )
+        return (nprev, nprev2, cap), (prev, prev2)
+
+    (_, _, score), (ck_prev, ck_prev2) = jax.lax.scan(
+        block_fwd,
+        (diag0, prev2_0, jnp.int32(0) + vary0),
+        jnp.arange(S, dtype=jnp.int32),
+    )
+
+    # ---- pass 2: backward blocks, re-fill + greedy walk
     MAX_OPS = A + B
 
-    top_fold, side_fold = fold_pair(top, side, R, A_r)
-    top_i32 = top_fold.reshape(-1)
-
-    ckpts = _ckpt_fill(
-        top_fold, side_fold, m, k, d, R, A_r, S, C, interpret
-    )  # (S, 2, R, 128)
-
-    j_fold = jnp.arange(N_pad, dtype=jnp.int32)
-
-    def block_step(carry, b_rev):
-        i, j, pos, ops = carry
+    def block_bwd(carry, b_rev):
         b = S - 1 - b_rev
-        kk_base = b * C
+        lo = 1 + b * C
 
         def run(args):
-            i, j, pos, ops = args
-            state = jax.lax.dynamic_index_in_dim(ckpts, b, 0, keepdims=False)
-            # rolling top-char register entering the block: the last
-            # completed diagonal is kk_base-1, whose register holds
-            # ch[j] = top[(kk_base-1) - 1 - j] (sentinel when OOR)
-            src = kk_base - 2 - j_fold
-            ch0 = jnp.where(
-                (src >= 0) & (src < A),
-                top_i32[jnp.clip(src, 0, A_r * LANES - 1)],
-                jnp.int32(-4),
-            ).reshape(R, LANES)
-            words = _refill_block(
-                state, ch0, top_fold, side_fold, m, k, d, kk_base,
-                R, A_r, C, interpret,
-            ).reshape(C // 4, N_pad)
+            _, arr = fill_block(ck_prev[b], ck_prev2[b], lo, True)
 
-            def wstep(t, st):
+            def wstep(_, st):
                 i, j, pos, ops = st
                 kk = i + j
-                active = (kk >= kk_base) & ((i > 0) | (j > 0))
-                local = jnp.clip(kk - kk_base, 0, C - 1)
-                w = words[local >> 2, j]
-                a = (w >> ((local & 3) * 8)) & 0xFF
+                active = (kk >= lo) & ((i > 0) | (j > 0))
+                a = arr[jnp.clip(kk - lo, 0, C - 1), j]
                 take_diag = (a & 1) != 0
-                take_left = jnp.logical_and(~take_diag, (a & 2) != 0)
+                take_left = ~take_diag & ((a & 2) != 0)
                 op = jnp.where(
                     take_diag, OP_DIAG, jnp.where(take_left, OP_LEFT, OP_UP)
                 ).astype(jnp.int8)
-                di = jnp.where(take_diag | take_left, 1, 0)
-                dj = jnp.where(take_left, 0, 1)  # diag/up consume a side char
                 ops = ops.at[pos].set(jnp.where(active, op, ops[pos]))
-                i = jnp.where(active, i - di, i)
-                j = jnp.where(active, j - dj, j)
-                pos = pos + jnp.where(active, 1, 0)
+                i = i - jnp.where(active & (take_diag | take_left), 1, 0)
+                j = j - jnp.where(active & ~take_left, 1, 0)
+                pos = pos + active.astype(jnp.int32)
                 return (i, j, pos, ops)
 
-            return jax.lax.fori_loop(0, C, wstep, (i, j, pos, ops))
+            return jax.lax.fori_loop(0, C, wstep, args)
 
-        # skip blocks entirely above the walk position
-        i, j, pos, ops = jax.lax.cond(
-            (i + j) >= kk_base, run, lambda a: a, (i, j, pos, ops)
-        )
-        return (i, j, pos, ops), None
+        i, j = carry[0], carry[1]
+        return jax.lax.cond(i + j >= lo, run, lambda a: a, carry), None
 
-    ops0 = jnp.full((MAX_OPS,), OP_NONE, jnp.int8)
-    (i, j, n, ops), _ = jax.lax.scan(
-        block_step,
-        (l1, l2, jnp.int32(0), ops0),
-        jnp.arange(S, dtype=jnp.int32),
+    ops0 = jnp.full((MAX_OPS + 1,), OP_NONE, jnp.int8)
+    (_, _, n, ops), _ = jax.lax.scan(
+        block_bwd, (l1, l2, jnp.int32(0), ops0), jnp.arange(S, dtype=jnp.int32)
     )
-    return ops, n
+    return ops[:MAX_OPS], n, score

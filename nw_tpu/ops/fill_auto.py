@@ -1,315 +1,140 @@
-"""Platform/shape routing for the DP fill kernels.
+"""Engine routing: the one place that maps (backend, mode, shapes) to an
+engine.
 
-One place that decides which fill implementation a batch takes, shared
-by the single-host batched API (models.needleman_wunsch.align_batch)
-and the mesh-sharded path (parallel.data_parallel):
+Shared by the single-host batched API
+(:meth:`nw_tpu.models.needleman_wunsch.NWAligner.align_batch`) and the
+mesh-sharded path (:mod:`nw_tpu.parallel.data_parallel`).  Engines:
 
-* TPU + score-only, side <= 256        -> fill_pallas (flat batch-in-lanes)
-* TPU + score-only, batch >= 24        -> fill_pallas_banded (row-tiled
-                                          batch-in-lanes; any side length)
-* TPU + score-only, small long batch   -> fill_pallas_single fold layout
-                                          (one pair fills the vector unit)
-* TPU + arrows, side <= 2048  -> fill_pallas.fill_arrows_pallas_batch
-                                 (batch-in-lanes, packed words)
-* TPU + arrows, side > 2048   -> fill_pallas_single.fill_arrows_fold_batch
-                                 (fold layout, packed words)
-* otherwise                   -> fill_scan (lax.scan wavefront)
+* ``"rows"`` — the one-lane-per-pair row-sweep kernel
+  (:mod:`nw_tpu.ops.fill_rows`, Pallas through Triton), GPU only.  It
+  serves every mode: score, score + count, and 2-bit greedy walk words
+  for strings.
+* ``"scan"`` — XLA's anti-diagonal ``lax.scan`` (:mod:`nw_tpu.ops.fill_scan`)
+  on any backend; modes that need more than the score materialize uint8
+  arrows, so those batches are chunked to :func:`arrow_budget_bytes`.
+* ``"huge"`` — pairs too large for any per-pair arrow table go one at a
+  time through the O(N)-memory routes (checkpointed traceback and fused
+  score + count), see ``NWAligner._align_batch_huge_pairs``.
 
-Measured v5e break-evens behind the score routing (PERF.md): flat wins
-to ~256 side (162 GCUPS at 150bp); banded wins beyond when the batch
-can fill lanes (323-409 GCUPS at 1k-10kb sides, 128 pairs); a <24-pair
-batch of long pairs wastes lanes in both batch kernels, and the
-~60 GCUPS-per-pair fold kernel wins.
-
-Arrow outputs are the packed 4-diagonals-per-int32 layout wherever a
-Pallas kernel runs; pathcount/traceback dispatch on dtype, so consumers
-need only the (array, batch_axis) pair this module returns.
+Routing bounds, measured end to end on an H100 (PERF.md): the kernel
+beats the scan at every batch size up to 1024-long sides; beyond that it
+wins only when the batch fills the card (>= 1024 pairs), because one
+lane walks its pair's whole table serially while the scan spreads one
+long diagonal over the card.  Interpret mode is never routed to: only
+tests run the kernel off the GPU, and they call it directly.
 """
 
 from __future__ import annotations
 
-import os
-from typing import Optional, Tuple
+from typing import Dict, Optional
 
 import jax
+import jax.numpy as jnp
 
-from nw_tpu.ops.fill_scan import fill_diag_batch, fill_scores_batch
+from nw_tpu.ops import pathcount, traceback
+from nw_tpu.ops.fill_rows import fill_rows_batch, strip_rows
+from nw_tpu.ops.fill_scan import fill_arrows_batch_kbn, fill_scores_batch
 
-# side-length bound for the batch-in-lanes arrows kernel (VMEM: rolling
-# state + double-buffered slab; see fill_pallas._arrow_chunk_for)
-LANES_ARROWS_MAX_SIDE = 2048
-# side-length bound for the batch-in-lanes SCORE kernel (4 rolling
-# (N, 128) scratch diagonals; probed OK at 4000, OOM at 6000)
-LANES_SCORES_MAX_SIDE = 4096
-# below this side the flat score kernel beats the banded one (measured)
-FLAT_SCORES_MAX_SIDE = 256
-# lane-occupancy break-even: a batch smaller than this of long pairs is
-# faster one-pair-at-a-time in the fold layout than padded to 128 lanes
-BANDED_MIN_BATCH = 24
-# beyond this side, a small batch's arrow-emitting runs go PER PAIR
-# through the huge-pair routes (config-5 walk words / checkpointed
-# re-fill / fused summary): the banded engine would pad to 128 lanes
-# (128x the cell work at 2 pairs) and the full-arrow fallback cannot
-# even allocate (~2 L^2 bytes of packed arrows — 20 GB at 100 kb)
+ROWS_ANY_BATCH_MAX_SIDE = 1024
+ROWS_MIN_BATCH = 1024
+# beyond this side, an arrow-emitting pair goes through the huge-pair
+# routes: its uint8 arrow table alone would be >= 2 GB
 HUGE_PAIR_MIN_SIDE = 32768
-# row-sweep engine bounds: sides short enough that 3 (L+1, 8, 128) VMEM
-# row/sequence buffers fit, batches big enough to fill 1024-pair blocks.
-# The SCORE-family kernels (fill_rowsweep, variants_rowsweep) hold the
-# whole tops bucket in VMEM too (no L1 grid chunking — only the greedy
-# arrows kernel chunks L1), so their routes must also cap the TOP side
-# or a (long s1, short s2) bucket blows the 16 MB VMEM budget.
-ROWSWEEP_MAX_SIDE = 512
-ROWSWEEP_MAX_TOP = 512  # affine's 3 row buffers are the binding case
-ROWSWEEP_MIN_BATCH = 1024
-
-
-def rowsweep_scores_fit(tops, sides, groups: int = None) -> bool:
-    """True when a bucket's geometry fits the score-family row-sweep
-    kernels' VMEM plan (both sequence buffers + the row buffer).
-
-    The caps are calibrated for groups=1 blocks; every VMEM buffer
-    scales with SL = 8*groups, so the caps shrink proportionally when
-    the NW_TPU_ROWSWEEP_GROUPS knob widens the block."""
-    if groups is None:
-        groups = rowsweep_knobs()[1]
-    return (
-        sides.shape[1] <= ROWSWEEP_MAX_SIDE // groups
-        and tops.shape[1] <= ROWSWEEP_MAX_TOP // groups
-    )
-
-
-def _rowsweep_enabled() -> bool:
-    # hardware-validated (scripts/tpu_validate.py 31x PASS + the tuned
-    # sweep below): ON by default; NW_TPU_ROWSWEEP=0 opts out
-    return os.environ.get("NW_TPU_ROWSWEEP", "1") == "1"
-
-
-# per-engine (rows, groups) hardware winners from
-# `scripts/rowsweep_tune.py` on v5e at 12288x150bp — every timed config
-# is bit-checked against the scan oracles before it may win
-ROWSWEEP_TUNED = {
-    "score": (8, 2),    # 289 GCUPS (flat wavefront kernel: 160)
-    "greedy": (16, 4),  # 205 GCUPS (banded 2-bit arrows: 105)
-    "counts": (4, 2),   # 155 GCUPS (fused score+count)
-    "sw": (8, 2),       # 226 GCUPS (flat wavefront: 121)
-    "affine": (4, 2),   # 188 GCUPS (flat wavefront: 89; g=4 blows VMEM)
-    "overlap": (8, 2),  # 221 GCUPS
-}
-# greedy arrows chunk the top sequence through the grid, so only the
-# side length scales their VMEM (sides x2 + row buffer ~ 12 KB * side *
-# groups + ~6 MB of word slabs); 600 keeps the total under ~14 MB
-GREEDY_MAX_SIDE_X_GROUPS = 600
-# single-pair strips-in-slots engine break-even vs the fold kernel
-# (measured: fold ~61 GCUPS flat; strips 69 at 50kb, 148 at 100kb)
-STRIPS_MIN_SIDE = 49152
-
-
-def tuned_file_path() -> str:
-    """Where `scripts/rowsweep_tune.py` persists its sweep winners.
-
-    The reference wishlists profile-driven auto-tuning
-    (/root/reference/README:209-214); here the tuner measures the real
-    chip, bit-checks every timed config, and saves the winners so
-    every later process routes with them — no code change, no env."""
-    return os.environ.get(
-        "NW_TPU_TUNED_FILE",
-        os.path.join(
-            os.path.expanduser("~"), ".cache", "nw_tpu", "tuned.json"
-        ),
-    )
-
-
-_TUNED_CACHE: "dict | None" = None
-
-
-def _tuned_from_file() -> dict:
-    global _TUNED_CACHE
-    if _TUNED_CACHE is None:
-        import json
-
-        try:
-            with open(tuned_file_path()) as f:
-                data = json.load(f)
-            _TUNED_CACHE = {
-                k: (int(v[0]), int(v[1]))
-                for k, v in data.get("engines", {}).items()
-            }
-        except (OSError, ValueError, KeyError, TypeError):
-            _TUNED_CACHE = {}
-    return _TUNED_CACHE
-
-
-def rowsweep_knobs(engine: str = "score") -> "tuple[int, int]":
-    """(rows, groups) ILP knobs for a row-sweep engine's route.
-
-    Resolution order: NW_TPU_ROWSWEEP_ROWS / NW_TPU_ROWSWEEP_GROUPS
-    pins (for sweeps), then this machine's persisted tuner winners
-    (:func:`tuned_file_path`), then the checked-in v5e winners
-    (ROWSWEEP_TUNED)."""
-    rows, groups = _tuned_from_file().get(
-        engine, ROWSWEEP_TUNED.get(engine, (8, 1))
-    )
-    env_r = os.environ.get("NW_TPU_ROWSWEEP_ROWS")
-    env_g = os.environ.get("NW_TPU_ROWSWEEP_GROUPS")
-    return (
-        int(env_r) if env_r else rows,
-        int(env_g) if env_g else groups,
-    )
-
-
-def rowsweep_pick(
-    engine: str, top_len: int, side_len: int, nb: int
-) -> "Optional[Tuple[int, int]]":
-    """(rows, groups) for a row-sweep route, or None to fall through.
-
-    Applies the engine's tuned knobs, then shrinks ``groups`` (halving)
-    until the geometry fits the VMEM plan and the batch fills at least
-    one ``groups * 1024``-pair block — padding a 1024-pair batch to a
-    4096-pair block would waste 4x the lanes.  When
-    NW_TPU_ROWSWEEP_GROUPS pins groups explicitly there is no shrink:
-    an unfit pinned geometry falls through (tuning runs must measure
-    exactly what they asked for).
-    """
-    if not _rowsweep_enabled() or nb < ROWSWEEP_MIN_BATCH:
-        return None
-    rows, groups = rowsweep_knobs(engine)
-    pinned = os.environ.get("NW_TPU_ROWSWEEP_GROUPS") is not None
-
-    def fits(g: int) -> bool:
-        if g > 1 and nb < ROWSWEEP_MIN_BATCH * g:
-            return False
-        if engine == "greedy":
-            return side_len * g <= GREEDY_MAX_SIDE_X_GROUPS
-        return (
-            side_len * g <= ROWSWEEP_MAX_SIDE
-            and top_len * g <= ROWSWEEP_MAX_TOP
-        )
-
-    if pinned:
-        return (rows, groups) if fits(groups) else None
-    # among the feasible block widths, minimize the padded batch (a
-    # 10240-pair batch at groups=4 pads to 12288 — 20% wasted slots,
-    # more than the ~5-10% the wider block wins); ties go to the wider
-    # block (closer to the tuned winner)
-    best = None
-    g = groups
-    while g >= 1:
-        if fits(g):
-            pb = 1024 * g
-            padded = -(-nb // pb) * pb
-            if best is None or padded < best[0]:
-                best = (padded, g)
-        g //= 2
-    return (rows, best[1]) if best else None
+# arrow-emitting scan batches are chunked to this share of device memory
+ARROW_BUDGET_SHARE = 4
+# budget where the backend reports no memory limit (the CPU)
+HOST_ARROW_BUDGET = 1 << 30
 
 
 def default_platform() -> str:
-    try:
-        return jax.devices()[0].platform
-    except Exception:  # pragma: no cover
-        return "cpu"
+    return jax.devices()[0].platform
 
 
-def fill_scores_auto(
-    tops, sides, lens1, lens2, m, k, d, platform: Optional[str] = None
-):
-    """int32[B] optimal scores via the best kernel for ``platform``."""
-    import jax.numpy as jnp
-
-    if (platform or default_platform()) == "tpu":
-        nb = tops.shape[0]
-        rs = rowsweep_pick("score", tops.shape[1], sides.shape[1], nb)
-        if rs is not None:
-            from nw_tpu.ops.fill_rowsweep import fill_scores_rowsweep_batch
-
-            return fill_scores_rowsweep_batch(
-                tops, sides, lens1, lens2, m, k, d,
-                rows=rs[0], groups=rs[1],
-            )
-        if sides.shape[1] <= FLAT_SCORES_MAX_SIDE:
-            from nw_tpu.ops.fill_pallas import fill_scores_pallas_batch
-
-            return fill_scores_pallas_batch(tops, sides, lens1, lens2, m, k, d)
-        if nb >= BANDED_MIN_BATCH:
-            from nw_tpu.ops.fill_pallas_banded import fill_scores_banded_batch
-
-            return fill_scores_banded_batch(tops, sides, lens1, lens2, m, k, d)
-        if sides.shape[1] <= LANES_SCORES_MAX_SIDE:
-            from nw_tpu.ops.fill_pallas import fill_scores_pallas_batch
-
-            return fill_scores_pallas_batch(tops, sides, lens1, lens2, m, k, d)
-        # small batch of long pairs: lanes can't be filled by the
-        # batch; per pair, the strips-in-slots pipeline (fill_strips)
-        # wins beyond ~45 kb (148 GCUPS at 100 kb, 224 at 200 kb vs the
-        # fold kernel's ~61 — the 1023-phase fill/drain bubble eats the
-        # gain below that)
-        if sides.shape[1] >= STRIPS_MIN_SIDE:
-            from nw_tpu.ops.fill_strips import strips_score
-
-            def one_strips(args):
-                top, side, l1, l2 = args
-                return strips_score(top, side, m, k, d, l1, l2)
-
-            return jax.lax.map(
-                one_strips,
-                (
-                    jnp.asarray(tops), jnp.asarray(sides),
-                    jnp.asarray(lens1, jnp.int32),
-                    jnp.asarray(lens2, jnp.int32),
-                ),
-            )
-        # mid lengths: the fold-layout single-pair kernel (~60
-        # GCUPS/pair) over the batch inside one dispatch
-        from nw_tpu.ops.fill_pallas_single import score_count_fold
-
-        def one(args):
-            top, side, l1, l2 = args
-            sc, _ = score_count_fold(top, side, m, k, d, len1=l1, len2=l2)
-            return sc
-
-        return jax.lax.map(
-            one,
-            (
-                jnp.asarray(tops), jnp.asarray(sides),
-                jnp.asarray(lens1, jnp.int32), jnp.asarray(lens2, jnp.int32),
-            ),
-        )
-
-    return fill_scores_batch(
-        tops, sides, m, k, d, jnp.asarray(lens1), jnp.asarray(lens2)
-    )
+def pick_engine(
+    nb: int, L1: int, L2: int, *, need_arrows: bool,
+    platform: Optional[str] = None,
+) -> str:
+    """Engine for a batch of ``nb`` pairs padded to (L1, L2)."""
+    if need_arrows and L2 > HUGE_PAIR_MIN_SIDE:
+        return "huge"
+    if (platform or default_platform()) == "gpu" and (
+        max(L1, L2) <= ROWS_ANY_BATCH_MAX_SIDE or nb >= ROWS_MIN_BATCH
+    ):
+        return "rows"
+    return "scan"
 
 
-def fill_arrows_auto(
-    tops, sides, lens1, lens2, m, k, d, platform: Optional[str] = None
-) -> Tuple[jax.Array, int, jax.Array]:
-    """(arrows, batch_axis, scores) via the best kernel for ``platform``.
+def pair_bytes(engine: str, L1: int, L2: int, counts: bool, strings: bool) -> int:
+    """Device bytes one pair's traceback state holds on ``engine``
+    (0 when nothing per-cell is stored)."""
+    if engine == "rows":
+        R = strip_rows(strings)
+        return -(-max(L1, 1) // R) * R * ((L2 + 16) // 16) * 4 if strings else 0
+    if engine == "scan" and (counts or strings):
+        return (L1 + L2 + 1) * (L2 + 1)
+    return 0
 
-    ``arrows`` is uint8 diagonal-major (scan path) or int32 packed words
-    (Pallas paths); index it with ``jnp.take(arrows, b, batch_axis)``
-    or vmap with ``in_axes=batch_axis``.
+
+def arrow_budget_bytes() -> int:
+    """Bytes an arrow-emitting batch may hold on the default device."""
+    stats = jax.devices()[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    return limit // ARROW_BUDGET_SHARE if limit else HOST_ARROW_BUDGET
+
+
+def chunked(norm, run):
+    """Run ``run`` over sub-batches of ``norm`` (byte pairs) sized so
+    each sub-batch's diagonal-major uint8 arrow table fits
+    :func:`arrow_budget_bytes`, and concatenate the per-pair results —
+    the variant (SW, Gotoh, overlap) alignment batches."""
+    if not norm:
+        return []
+    A = max(len(a) for a, _ in norm)
+    B = max(len(b) for _, b in norm)
+    chunk = max(1, arrow_budget_bytes() // ((A + B + 1) * (B + 1)))
+    out = []
+    for i in range(0, len(norm), chunk):
+        out.extend(run(norm[i : i + chunk]))
+    return out
+
+
+def fill_batch(
+    tops, sides, lens1, lens2, m, k, d, *, engine: str,
+    counts: bool = False, strings: bool = False,
+) -> Dict[str, jax.Array]:
+    """Run one padded batch on ``engine`` ("rows" or "scan").
+
+    Returns a dict of device arrays: ``score`` int32[B]; ``count``
+    uint32[B] with ``counts``; ``ops`` int8[B, L1+L2] and ``n`` int32[B]
+    (the greedy first-emission walk, :mod:`nw_tpu.ops.traceback`) with
+    ``strings``.  Traceable, so the sharded path runs it per shard.
     """
-    plat = platform or default_platform()
-    Bs = sides.shape[1]
-    if plat == "tpu" and Bs <= LANES_ARROWS_MAX_SIDE:
-        # single-band banded kernel: flat packed layout, unrolled
-        # register-resident loop (~1.4x the flat arrows kernel)
-        from nw_tpu.ops.fill_pallas_banded import fill_arrows_banded_single
-
-        words, scores = fill_arrows_banded_single(
-            tops, sides, lens1, lens2, m, k, d
+    l1 = jnp.asarray(lens1, jnp.int32)
+    l2 = jnp.asarray(lens2, jnp.int32)
+    max_steps = tops.shape[1] + sides.shape[1]
+    if engine == "rows":
+        out = fill_rows_batch(
+            tops, sides, l1, l2, m, k, d,
+            with_counts=counts, with_words=strings,
         )
-        return words, 2, scores
-    if plat == "tpu":
-        from nw_tpu.ops.fill_pallas_single import fill_arrows_fold_batch
-
-        words, scores = fill_arrows_fold_batch(
-            tops, sides, lens1, lens2, m, k, d, packed=True
+        res = {"score": out["score"]}
+        if counts:
+            res["count"] = out["count"]
+        if strings:
+            res["ops"], res["n"] = traceback.traceback_greedy2_rowmajor_batch(
+                out["words"], l1, l2, max_steps=max_steps
+            )
+        return res
+    if not (counts or strings):
+        return {"score": fill_scores_batch(tops, sides, m, k, d, l1, l2)}
+    out = fill_arrows_batch_kbn(tops, sides, m, k, d, l1, l2)
+    res = {"score": out["score"]}
+    if counts:
+        res["count"] = jax.vmap(pathcount.count_paths, in_axes=(1, 0, 0))(
+            out["arrows"], l1, l2
         )
-        return words, 0, scores
-    import jax.numpy as jnp
-
-    out = fill_diag_batch(
-        tops, sides, m, k, d, jnp.asarray(lens1), jnp.asarray(lens2)
-    )
-    return out["arrows"], 0, out["score"]
+    if strings:
+        res["ops"], res["n"] = traceback.traceback_greedy_batch(
+            out["arrows"], l1, l2, max_steps=max_steps, axis=1
+        )
+    return res

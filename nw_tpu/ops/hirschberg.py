@@ -22,8 +22,7 @@ first-emitted one.
 
 from __future__ import annotations
 
-import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
@@ -40,29 +39,9 @@ def _bucket(n: int) -> int:
     return b
 
 
-@functools.lru_cache(maxsize=None)
-def _pad_cache():
-    return {}
-
-
-_ON_TPU: Optional[bool] = None
-
-
-def _on_tpu() -> bool:
-    global _ON_TPU
-    if _ON_TPU is None:
-        import jax
-
-        try:
-            _ON_TPU = jax.devices()[0].platform == "tpu"
-        except Exception:
-            _ON_TPU = False
-    return _ON_TPU
-
-
 def _device_last_row(top: np.ndarray, side: np.ndarray, m, k, d) -> np.ndarray:
-    """H[len(side), 0..len(top)] on device, bucket-padded: the fold-layout
-    Pallas kernel on TPU (~50 GCUPS single pair), lax.scan elsewhere."""
+    """H[len(side), 0..len(top)] on device (:func:`fill_last_row`),
+    bucket-padded so the recursion reuses compiled shapes."""
     import jax.numpy as jnp
 
     A, B = top.shape[0], side.shape[0]
@@ -71,12 +50,7 @@ def _device_last_row(top: np.ndarray, side: np.ndarray, m, k, d) -> np.ndarray:
     tp[:A] = top
     sp = np.full((Bb,), -2, np.int32)
     sp[:B] = side
-    if _on_tpu():
-        from nw_tpu.ops.fill_pallas_single import last_row_pallas
-
-        row = last_row_pallas(jnp.asarray(tp), jnp.asarray(sp), m, k, d, len2=B)
-    else:
-        row = fill_last_row(jnp.asarray(tp), jnp.asarray(sp), m, k, d, A, B)
+    row = fill_last_row(jnp.asarray(tp), jnp.asarray(sp), m, k, d, A, B)
     return np.asarray(row)[: A + 1]
 
 

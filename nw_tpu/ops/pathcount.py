@@ -27,111 +27,58 @@ backward respectively.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
 
+@jax.jit
 def count_paths(arrows_diag, len1, len2):
     """Number of optimal alignments (uint32, reference-wrapping).
 
-    arrows_diag: uint8[K, N] diagonal-major arrows, or int32[K//4, N]
-    packed words (4 diagonals per word, little-endian — the
-    ``packed=True`` layout of fill_pallas.fill_arrows_pallas_batch);
-    dispatches on dtype.  len1/len2: true lengths (traced ok).
-    Pad-region cells are harmless: counts flow only along arrows inside
-    the true rectangle, and we read the count at the true corner.
+    arrows_diag: uint8[K, N] diagonal-major arrows.  len1/len2: true
+    lengths (traced ok).  Pad-region cells are harmless: counts flow
+    only along arrows inside the true rectangle, and the count is read
+    at the true corner — captured in the scan carry, so the live state
+    is two count diagonals, never a (K, N) count table.
     """
-    if arrows_diag.dtype == jnp.int32:
-        return _count_paths_packed(arrows_diag, len1, len2)
-    return _count_paths_u8(arrows_diag, len1, len2)
+    from nw_tpu.ops.fill_scan import _count_step
 
-
-@jax.jit
-def _count_paths_u8(arrows_diag, len1, len2):
     K, N = arrows_diag.shape
-
-    def step(carry, arr_k):
-        prev, prev2 = carry  # counts on diagonals k-1 and k-2
-        prev_sh = jnp.concatenate([jnp.zeros((1,), jnp.uint32), prev[:-1]])
-        prev2_sh = jnp.concatenate([jnp.zeros((1,), jnp.uint32), prev2[:-1]])
-        cnt = (
-            jnp.where((arr_k & 1) != 0, prev2_sh, 0)  # diag pred (j-1 on k-2)
-            + jnp.where((arr_k & 2) != 0, prev, 0)     # left pred (j   on k-1)
-            + jnp.where((arr_k & 4) != 0, prev_sh, 0)  # up pred   (j-1 on k-1)
-        ).astype(jnp.uint32)
-        return (cnt, prev), cnt
-
-    j_idx = jnp.arange(N, dtype=jnp.int32)
-    # zero carrying the inputs' varying-axes type (see fill_scan)
-    vary0 = arrows_diag.astype(jnp.uint32).sum() * 0 + (len1 + len2).astype(jnp.uint32) * 0
-    diag0 = jnp.where(j_idx == 0, jnp.uint32(1), jnp.uint32(0)) + vary0
-    zero = jnp.zeros((N,), jnp.uint32) + vary0
-    _, counts_tail = jax.lax.scan(step, (diag0, zero), arrows_diag[1:])
-    counts = jnp.concatenate([diag0[None], counts_tail])
-    return counts[len1 + len2, len2]
-
-
-@jax.jit
-def _count_paths_packed(words, len1, len2):
-    """count_paths over packed words; the corner count rides the scan
-    carry instead of materializing a (K, N) counts table (which at 100kb
-    sides would be 40x the arrow storage)."""
-    K4, N = words.shape
     j_idx = jnp.arange(N, dtype=jnp.int32)
     k_corner = jnp.asarray(len1 + len2, jnp.int32)
-    corner_mask = j_idx == jnp.asarray(len2, jnp.int32)
-    zero1 = jnp.zeros((1,), jnp.uint32)
-    seed = jnp.where(j_idx == 0, jnp.uint32(1), jnp.uint32(0))
+    # zero carrying the inputs' varying-axes type (see fill_scan)
+    vary0 = arrows_diag[0, 0].astype(jnp.uint32) * 0 + (len1 + len2).astype(
+        jnp.uint32
+    ) * 0
+    diag0 = jnp.where(j_idx == 0, jnp.uint32(1), jnp.uint32(0)) + vary0
+    zero = jnp.zeros((N,), jnp.uint32) + vary0
 
-    def word_step(carry, xs):
-        w, q = xs
+    def step(carry, xs):
         prev, prev2, corner = carry
-        for r in range(4):  # static unroll: one word read per 4 diagonals
-            kk = q * 4 + r
-            arr = (w >> (r * 8)) & 0xFF
-            prev_sh = jnp.concatenate([zero1, prev[:-1]])
-            prev2_sh = jnp.concatenate([zero1, prev2[:-1]])
-            cnt = (
-                jnp.where((arr & 1) != 0, prev2_sh, 0)
-                + jnp.where((arr & 2) != 0, prev, 0)
-                + jnp.where((arr & 4) != 0, prev_sh, 0)
-            ).astype(jnp.uint32)
-            cnt = jnp.where(kk == 0, seed, cnt)  # cell (0,0) seeds 1 path
-            corner = jnp.where(
-                kk == k_corner,
-                jnp.sum(jnp.where(corner_mask, cnt, jnp.uint32(0))),
-                corner,
-            )
-            prev, prev2 = cnt, prev
-        return (prev, prev2, corner), None
+        arr_k, kk = xs
+        cnt = _count_step(arr_k, prev, prev2)
+        corner = jnp.where(
+            kk == k_corner,
+            jax.lax.dynamic_index_in_dim(cnt, len2, keepdims=False),
+            corner,
+        )
+        return (cnt, prev, corner), None
 
-    zero = jnp.zeros((N,), jnp.uint32)
     (_, _, corner), _ = jax.lax.scan(
-        word_step,
-        (zero, zero, jnp.uint32(0)),
-        (words, jnp.arange(K4, dtype=jnp.int32)),
+        step,
+        (diag0, zero, jnp.uint32(1) + vary0),
+        (arrows_diag[1:], jnp.arange(1, K, dtype=jnp.int32)),
     )
     return corner
 
 
+@jax.jit
 def mark_optimal_cells(arrows_diag, len1, len2):
     """bool[K, N] — cells backward-reachable from the true corner.
 
     Matches the set of cells the reference DFS marks ``in_optimal_path``
-    when ``-t`` is given (needleman-wunsch.c:239-241).  Accepts the
-    packed int32 word layout too (dispatch on dtype, as count_paths).
+    when ``-t`` is given (needleman-wunsch.c:239-241).
     """
-    if arrows_diag.dtype == jnp.int32:
-        from nw_tpu.ops.fill_pallas import unpack_arrows32
-
-        arrows_diag = unpack_arrows32(arrows_diag)
-    return _mark_optimal_cells_u8(arrows_diag, len1, len2)
-
-
-@jax.jit
-def _mark_optimal_cells_u8(arrows_diag, len1, len2):
     K, N = arrows_diag.shape
     j_idx = jnp.arange(N, dtype=jnp.int32)
     k_corner = len1 + len2
@@ -160,6 +107,7 @@ def _mark_optimal_cells_u8(arrows_diag, len1, len2):
     return reach_rev[::-1]
 
 
+@jax.jit
 def count_branches(arrows_diag, len1, len2):
     """Number of cells with more than one optimal direction — the
     reference's walk-table ``branch_count`` (incremented at
@@ -167,17 +115,7 @@ def count_branches(arrows_diag, len1, len2):
 
     Counted over interior cells of the true rectangle only (the
     reference increments inside score_cell, which runs for col,row >= 1).
-    Accepts the packed int32 word layout (dispatch on dtype).
     """
-    if arrows_diag.dtype == jnp.int32:
-        from nw_tpu.ops.fill_pallas import unpack_arrows32
-
-        arrows_diag = unpack_arrows32(arrows_diag)
-    return _count_branches_u8(arrows_diag, len1, len2)
-
-
-@jax.jit
-def _count_branches_u8(arrows_diag, len1, len2):
     K, N = arrows_diag.shape
     j_idx = jnp.arange(N, dtype=jnp.int32)[None, :]
     k_idx = jnp.arange(K, dtype=jnp.int32)[:, None]

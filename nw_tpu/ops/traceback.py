@@ -39,10 +39,7 @@ def traceback_greedy(arrows_diag, len1, len2, max_steps: int):
     """Greedy (first-alignment) backward walk over one pair's arrows.
 
     Args:
-      arrows_diag: uint8[K, N] diagonal-major packed arrows, or
-        int32[K//4, N] packed words (4 diagonals per word, little-endian
-        — fill_pallas.fill_arrows_pallas_batch(packed=True)); dispatches
-        on dtype.
+      arrows_diag: uint8[K, N] diagonal-major arrows.
       len1, len2: true sequence lengths (int32 scalars; the walk starts at
         cell (len2, len1), cf. construct_alignments, needleman-wunsch.c:376).
       max_steps: static trip count; must be >= len1 + len2.
@@ -52,16 +49,10 @@ def traceback_greedy(arrows_diag, len1, len2, max_steps: int):
         padded with OP_NONE.
       n: int32 — number of real ops (= aligned string length).
     """
-    is_packed = arrows_diag.dtype == jnp.int32
-
     def step(t, state):
         i, j, n, ops = state
         active = (i > 0) | (j > 0)
-        if is_packed:
-            kk = i + j
-            a = (arrows_diag[kk >> 2, j] >> ((kk & 3) * 8)) & 0xFF
-        else:
-            a = arrows_diag[i + j, j]
+        a = arrows_diag[i + j, j]
         take_diag = (a & 1) != 0
         take_left = jnp.logical_and(~take_diag, (a & 2) != 0)
         take_up = jnp.logical_and(~(take_diag | take_left), (a & 4) != 0)
@@ -86,63 +77,11 @@ def traceback_greedy(arrows_diag, len1, len2, max_steps: int):
 
 
 @functools.partial(jax.jit, static_argnames=("max_steps",))
-def traceback_greedy2(words2, len1, len2, max_steps: int):
-    """Greedy walk over flat 2-bit GREEDY-direction words.
-
-    ``words2``: int32[T16, N] from
-    :func:`nw_tpu.ops.fill_pallas_banded.fill_greedy_banded_single` —
-    cell (j, i) is bits ``2 * ((i+j) & 15)`` of ``words2[(i+j) >> 4, j]``
-    with code 0 diag / 1 left / 2 up (the code IS the op: the kernel
-    already applied the reference's diag > left > up descend priority,
-    needleman-wunsch.c:305-324).  Same contract as
-    :func:`traceback_greedy` otherwise.
-    """
-
-    def step(t, state):
-        i, j, n, ops = state
-        active = (i > 0) | (j > 0)
-        kk = i + j
-        a = (words2[kk >> 4, j] >> ((kk & 15) * 2)) & 3
-        di = jnp.where(a != OP_UP, 1, 0)
-        dj = jnp.where(a != OP_LEFT, 1, 0)
-        ops = ops.at[t].set(
-            jnp.where(active, a, jnp.int32(OP_NONE)).astype(jnp.int8)
-        )
-        i = jnp.where(active, i - di, i)
-        j = jnp.where(active, j - dj, j)
-        n = n + jnp.where(active, 1, 0)
-        return (i, j, n, ops)
-
-    ops0 = jnp.full((max_steps,), OP_NONE, jnp.int8)
-    i0 = jnp.asarray(len1, jnp.int32)
-    j0 = jnp.asarray(len2, jnp.int32)
-    _, _, n, ops = jax.lax.fori_loop(
-        0, max_steps, step, (i0, j0, jnp.int32(0), ops0)
-    )
-    return ops, n
-
-
-@functools.lru_cache(maxsize=None)
-def _greedy2_batch_vmapped(max_steps: int):
-    return jax.jit(
-        jax.vmap(
-            lambda a, l1, l2: traceback_greedy2(a, l1, l2, max_steps),
-            in_axes=(2, 0, 0),
-        )
-    )
-
-
-def traceback_greedy2_batch(words2, lens1, lens2, max_steps: int):
-    """Batched 2-bit greedy traceback: words2 int32[T16, N, B]."""
-    return _greedy2_batch_vmapped(max_steps)(words2, lens1, lens2)
-
-
-@functools.partial(jax.jit, static_argnames=("max_steps",))
 def traceback_greedy2_rowmajor(words, len1, len2, max_steps: int):
     """Greedy walk over ROW-MAJOR 2-bit greedy words.
 
     ``words``: int32[L1w, W16] from
-    :func:`nw_tpu.ops.arrows_rowsweep.fill_greedy_rowsweep_batch` —
+    :func:`nw_tpu.ops.fill_rows.fill_rows_batch` (``with_words``) —
     cell (i, j) (i over s1 rows 1..len1, j over s2 columns) is bits
     ``2 * (j & 15)`` of ``words[i - 1, j >> 4]``; the code IS the op
     (0 diag / 1 left / 2 up, reference descend priority,
@@ -194,19 +133,67 @@ def traceback_greedy2_rowmajor_batch(words, lens1, lens2, max_steps: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _greedy_batch_vmapped(max_steps: int):
+def _greedy_batch_vmapped(max_steps: int, axis: int):
     # cached: a fresh jax.jit wrapper per call would recompile every time
     return jax.jit(
         jax.vmap(
             lambda a, l1, l2: traceback_greedy(a, l1, l2, max_steps),
+            in_axes=(axis, 0, 0),
+        )
+    )
+
+
+def traceback_greedy_batch(arrows_diag, lens1, lens2, max_steps: int, axis: int = 0):
+    """Batched greedy traceback: arrows_diag uint8[B, K, N] (or [K, B, N]
+    with ``axis=1``)."""
+    return _greedy_batch_vmapped(max_steps, axis)(arrows_diag, lens1, lens2)
+
+
+@functools.partial(jax.jit, static_argnames=("max_steps",))
+def walk_until_zero(arrows_diag, j0, i0, max_steps: int):
+    """Greedy diag > left > up walk from cell (j0, i0) over uint8
+    diagonal-major arrows until row 0, column 0 or an arrow-free cell —
+    the local (Smith-Waterman) and overlap tracebacks, whose start cells
+    carry no arrows.  Returns (ops, n, i, j): ops corner -> start in
+    :func:`ops_to_strings` order, and the cell where the walk stopped."""
+
+    def step(t, st):
+        i, j, n, ops, done = st
+        a = arrows_diag[i + j, j]
+        active = ~done & (i > 0) & (j > 0) & (a != 0)
+        take_diag = active & ((a & 1) != 0)
+        take_left = active & ~take_diag & ((a & 2) != 0)
+        op = jnp.where(
+            take_diag, OP_DIAG, jnp.where(take_left, OP_LEFT, OP_UP)
+        ).astype(jnp.int8)
+        ops = ops.at[t].set(jnp.where(active, op, OP_NONE))
+        i = i - jnp.where(take_diag | take_left, 1, 0)
+        j = j - jnp.where(active & ~take_left, 1, 0)
+        n = n + active.astype(jnp.int32)
+        return (i, j, n, ops, ~active | done)
+
+    ops0 = jnp.full((max_steps,), OP_NONE, jnp.int8)
+    i, j, n, ops, _ = jax.lax.fori_loop(
+        0, max_steps, step,
+        (jnp.asarray(i0, jnp.int32), jnp.asarray(j0, jnp.int32),
+         jnp.int32(0), ops0, jnp.asarray(False)),
+    )
+    return ops, n, i, j
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_until_zero_vmapped(max_steps: int):
+    return jax.jit(
+        jax.vmap(
+            lambda a, j0, i0: walk_until_zero(a, j0, i0, max_steps),
             in_axes=(0, 0, 0),
         )
     )
 
 
-def traceback_greedy_batch(arrows_diag, lens1, lens2, max_steps: int):
-    """Batched greedy traceback: arrows_diag uint8[B, K, N]."""
-    return _greedy_batch_vmapped(max_steps)(arrows_diag, lens1, lens2)
+def walk_until_zero_batch(arrows_diag, j0, i0, max_steps: int):
+    """Batched :func:`walk_until_zero`: arrows_diag uint8[B, K, N]."""
+    return _walk_until_zero_vmapped(max_steps)(arrows_diag, j0, i0)
 
 
 def ops_to_strings_batch(ops, ns, pairs, gap: int = ord("-")):

@@ -3,7 +3,7 @@
 Pair batches shard along the ``data`` mesh axis (one shard of pairs per
 device); each device runs the wavefront fill on its shard, and run-level
 statistics merge with XLA collectives.  The merged counters are the
-TPU-native replacement for the reference's rwlock-protected globals
+collective replacement for the reference's rwlock-protected globals
 (``solution_count``, computation.c:223-260; ``branch_count``,
 walk-table.c:108-147): instead of threads serializing on a lock, every
 device owns its partial sums and one ``psum`` combines them.
@@ -12,24 +12,65 @@ device owns its partial sums and one ``psum`` combines them.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
-from nw_tpu.ops.fill_auto import fill_arrows_auto, fill_scores_auto
-
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from nw_tpu.ops.fill_auto import fill_batch, pick_engine
 
 
 @functools.partial(
     jax.jit, static_argnames=("mesh", "axis", "with_counts", "m", "k", "d")
 )
+def _align_batch_sharded(
+    tops, sides, lens1, lens2, *, m, k, d, mesh, axis, with_counts
+):
+    # per-shard engine choice follows the mesh's platform and the
+    # shard's shapes (GPU shards run the row-sweep kernel)
+    nshard = tops.shape[0] // mesh.shape[axis]
+    engine = pick_engine(
+        nshard, tops.shape[1], sides.shape[1], need_arrows=False,
+        platform=mesh.devices.flat[0].platform,
+    )
+
+    def shardfn(tops, sides, lens1, lens2):
+        out = fill_batch(
+            tops, sides, lens1, lens2, m, k, d, engine=engine,
+            counts=with_counts,
+        )
+        scores = out["score"]
+        real = (lens1 > 0) | (lens2 > 0)
+        stats = {
+            "pairs": jax.lax.psum(real.sum(), axis),
+            "score_sum": jax.lax.psum(jnp.where(real, scores, 0).sum(), axis),
+            "score_min": jax.lax.pmin(
+                jnp.where(real, scores, jnp.int32(2**31 - 1)).min(), axis
+            ),
+            "score_max": jax.lax.pmax(
+                jnp.where(real, scores, jnp.int32(-(2**31))).max(), axis
+            ),
+        }
+        if with_counts:
+            stats["solutions"] = jax.lax.psum(out["count"].sum(), axis)
+        return scores, stats
+
+    spec = P(axis)
+    mapped = jax.shard_map(
+        shardfn,
+        mesh=mesh,
+        in_specs=(spec, spec, spec, spec),
+        out_specs=(spec, P()),
+        # pallas_call outputs carry no varying-mesh-axes metadata; the
+        # explicit in/out specs above are the contract
+        check_vma=False,
+    )
+    return mapped(tops, sides, jnp.asarray(lens1), jnp.asarray(lens2))
+
+
 def align_batch_sharded(
     tops,
     sides,
@@ -46,71 +87,46 @@ def align_batch_sharded(
     """Shard a pair batch over ``axis``, fill, and psum-merge run stats.
 
     Args:
-      tops: int32[B, A]; sides: int32[B, Bs]; lens1/lens2: int32[B].
+      tops: int32/uint8[B, A]; sides: [B, Bs]; lens1/lens2: int32[B].
         B must divide evenly by the mesh axis size (pad with dummy pairs
-        of length 0 and drop them from stats via ``lens1 > 0`` masking
-        upstream if needed).
+        of length 0; they are masked out of the stats by
+        ``lens1 > 0 | lens2 > 0``).
     Returns:
       (scores int32[B] — sharded over ``axis``,
-       stats dict of replicated scalars: ``pairs``, ``score_sum``,
-       ``score_min``, ``score_max``, ``cells`` and, with
-       ``with_counts``, ``solutions`` — the psum of per-pair optimal
-       alignment counts, uint32-wrapping like the reference's global
-       counter.)
+       stats dict of replicated scalars: ``pairs``, ``score_sum``
+       (int32 psum), ``score_min``, ``score_max``, ``cells`` (an exact
+       host int: sum of len1*len2) and, with ``with_counts``,
+       ``solutions`` — the psum of per-pair optimal alignment counts,
+       uint32-wrapping like the reference's global counter.)
     """
-
-    # per-device kernel choice follows the mesh's platform (TPU shards
-    # run the Pallas kernels; CPU/virtual meshes the lax.scan fill)
-    platform = mesh.devices.flat[0].platform
-
-    def shardfn(tops, sides, lens1, lens2):
-        if with_counts:
-            from nw_tpu.ops.pathcount import count_paths
-
-            arrows, arrows_axis, scores = fill_arrows_auto(
-                tops, sides, lens1, lens2, m, k, d, platform=platform
-            )
-            counts = jax.vmap(count_paths, in_axes=(arrows_axis, 0, 0))(
-                arrows, lens1, lens2
-            )
-            solutions = jax.lax.psum(counts.sum().astype(jnp.uint32), axis)
-        else:
-            scores = fill_scores_auto(
-                tops, sides, lens1, lens2, m, k, d, platform=platform
-            )
-            solutions = None
-
-        real = (lens1 > 0) | (lens2 > 0)
-        stats = {
-            "pairs": jax.lax.psum(real.sum(), axis),
-            "score_sum": jax.lax.psum(
-                jnp.where(real, scores, 0).astype(jnp.int64).sum(), axis
-            ),
-            "score_min": jax.lax.pmin(
-                jnp.where(real, scores, jnp.int32(2**31 - 1)).min(), axis
-            ),
-            "score_max": jax.lax.pmax(
-                jnp.where(real, scores, jnp.int32(-(2**31))).max(), axis
-            ),
-            "cells": jax.lax.psum(
-                (lens1.astype(jnp.int64) * lens2.astype(jnp.int64)).sum(), axis
-            ),
-        }
-        if solutions is not None:
-            stats["solutions"] = solutions
-        return scores, stats
-
-    spec = P(axis)
-    mapped = shard_map(
-        shardfn,
-        mesh=mesh,
-        in_specs=(spec, spec, spec, spec),
-        out_specs=(spec, P()),
-        # pallas_call outputs carry no varying-mesh-axes metadata; the
-        # explicit in/out specs above are the contract
-        check_vma=False,
+    scores, stats = _align_batch_sharded(
+        tops, sides, lens1, lens2, m=m, k=k, d=d, mesh=mesh, axis=axis,
+        with_counts=with_counts,
     )
-    return mapped(tops, sides, jnp.asarray(lens1), jnp.asarray(lens2))
+    stats["cells"] = _cells(lens1, lens2)
+    return scores, stats
+
+
+def _cells(lens1, lens2) -> int:
+    """Exact sum of len1*len2 on the host: int32 device arithmetic
+    overflows at real sizes (and int64 is int32 with x64 off).  A batch
+    spread over several processes sums each process's own shards, then
+    the per-process totals, sent as two int32 limbs of 30 bits."""
+    if not isinstance(lens1, jax.Array) or lens1.is_fully_addressable:
+        return int(
+            (np.asarray(lens1, np.int64) * np.asarray(lens2, np.int64)).sum()
+        )
+    from jax.experimental import multihost_utils
+
+    local = {}
+    for s1, s2 in zip(lens1.addressable_shards, lens2.addressable_shards):
+        local[str(s1.index)] = int(
+            (np.asarray(s1.data, np.int64) * np.asarray(s2.data, np.int64)).sum()
+        )
+    total = sum(local.values())
+    limbs = np.asarray([total >> 30, total & ((1 << 30) - 1)], np.int32)
+    hi, lo = np.asarray(multihost_utils.process_allgather(limbs), np.int64).sum(0)
+    return int((hi << 30) + lo)
 
 
 def shard_batch(mesh: Mesh, axis: str, *arrays):

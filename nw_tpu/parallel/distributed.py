@@ -7,8 +7,8 @@ same global mesh over ``jax.devices()`` (which then spans all hosts),
 feeds its local shard of the pair batch with
 ``jax.make_array_from_process_local_data``, and runs the same
 ``shard_map`` programs from :mod:`nw_tpu.parallel.data_parallel` — the
-``psum`` stat merges ride ICI within a slice and DCN across hosts, with
-no code changes.
+``psum`` stat merges ride NVLink within a host and the network across
+hosts (XLA hands them to NCCL), with no code changes.
 
 This module is exercised single-process in CI (the collectives are
 identical); real multi-host bring-up is coordinator-address plumbing

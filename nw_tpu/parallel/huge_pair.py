@@ -15,26 +15,18 @@ diagonal-chunk) tiles:
 * the halo is the owner's **last-row values by diagonal** — decisions
   (arrow bits) are recomputed locally from exchanged *values*, so tie
   flags are deterministic across tile boundaries (SURVEY §7 hard part);
-* each device stores its own rows' walk words diagonal-major in local
-  HBM ("tiled HBM arrow storage": with the pallasb engine's 2-bit
-  greedy codes a 100 kb pair is ~2.5 GB total — one chip holds it;
-  the monolithic kernel's 8-bit cells need ~20 GB, mesh-sharded);
+* each device stores its own rows' uint8 arrows diagonal-major in its
+  own device memory ("tiled arrow storage": a 100 kb pair is ~20 GB,
+  which one 80 GB card holds, or a quarter of it on each of four);
 * the exact greedy traceback (reference first-emission order) runs as a
   **segment relay**: the device owning the walk head walks through its
   rows in a local loop (no collectives), then the head state moves down
   the mesh with one ``psum`` per device crossing; segments are stitched
   on the host.
 
-The per-chunk compute is the same natural-boundary anti-diagonal
-recurrence as the Pallas kernels (fill_pallas.py docstring), in three
-engines: ``scan`` (plain ``lax.scan`` vector ops — the CPU-mesh
-default and cross-checked reference formulation), ``pallas`` (the
-monolithic fold-layout chunk kernel; emits 8-bit packed tie-mask
-arrows), and ``pallasb`` (the register-blocked kernel — the TPU
-default for BOTH score fills, ~157 GCUPS/device at 1x100kb vs
-pallas's 60, and walks via its 2-bit greedy-word mode, 1x100kb exact
-alignment in 0.38 s on one chip; see
-``_make_fold_chunk_kernel_blocked``).
+The per-chunk compute is the natural-boundary anti-diagonal recurrence
+as plain ``lax.scan`` vector ops, cross-checked against the
+single-device fill (:mod:`nw_tpu.ops.fill_scan`).
 """
 
 from __future__ import annotations
@@ -46,18 +38,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
 from nw_tpu.ops.fill_scan import NEG_INF
 from nw_tpu.ops.traceback import OP_DIAG, OP_LEFT, OP_NONE, OP_UP
-
-LANES = 128
-
-try:
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
@@ -67,587 +49,13 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _make_fold_chunk_kernel(R: int, C: int, traceback: bool):
-    """One device's C-diagonal chunk of the tiled fill, fold layout.
-
-    The device's H = R*128 rows fold as ``j_local = r*128 + lane``; per
-    step the halo (parent last-row value) and the entering top char are
-    SMEM scalars, so the hot loop is pure (R, 128) vector ops with the
-    same carried-pre-shifted-prev2 economy as the batch kernels (the
-    halo injected into prev's shift one step earlier IS next step's
-    diagonal dependency).
-
-    Refs:
-      s_ref:    SMEM (1, 8) int32 — m, k, d, base (c*C), k_corner,
-                corner_jl (local fold index of the corner row, -1 if
-                not owned), seed flag (device 0), unused
-      ts_ref:   SMEM (1, C) int32 — top char entering at local row 0
-                per step
-      inj_ref:  SMEM (1, C) int32 — parent halo per step
-      side_ref: VMEM (R, 128) int32 — folded side chars
-      prev/prev2sh/ch (in), cap_ref (SMEM (1,1)): carried state
-      outs: prev/prev2sh/ch (out), emit SMEM (1, C) — last-row stream,
-            cap out, [words VMEM (C//4, R, 128) packed arrows]
-      pack_ref: VMEM (R, 128) scratch (arrow word accumulator)
-    """
-
-    def kernel(*refs):
-        it = iter(refs)
-        s_ref = next(it)
-        ts_ref = next(it)
-        inj_ref = next(it)
-        side_ref = next(it)
-        prev_in = next(it)
-        prev2sh_in = next(it)
-        ch_in = next(it)
-        cap_in = next(it)
-        prev_out = next(it)
-        prev2sh_out = next(it)
-        ch_out = next(it)
-        cap_out = next(it)
-        emit_ref = next(it)
-        words_ref = next(it) if traceback else None
-        pack_ref = next(it) if traceback else None
-
-        m = s_ref[0, 0]
-        kmis = s_ref[0, 1]
-        d = s_ref[0, 2]
-        base = s_ref[0, 3]
-        k_corner = s_ref[0, 4]
-        corner_jl = s_ref[0, 5]
-        seed = s_ref[0, 6]
-
-        r_iota = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 0)
-        l_iota = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 1)
-        at0 = (r_iota == 0) & (l_iota == 0)
-
-        def shift_local(x, fill):
-            # sh[j] = x[j-1] in the fold layout; sh[0] = fill (scalar)
-            y = pltpu.roll(x, 1, axis=1)
-            if R > 1:
-                y_down = jnp.concatenate([y[-1:, :], y[:-1, :]], axis=0)
-                z = jnp.where(l_iota == 0, y_down, y)
-            else:
-                z = y  # single row: lane 0 is always the fill position
-            return jnp.where(at0, fill, z)
-
-        prev_out[...] = prev_in[...]
-        prev2sh_out[...] = prev2sh_in[...]
-        ch_out[...] = ch_in[...]
-        cap_out[0, 0] = cap_in[0, 0]
-
-        side_ch = side_ref[...]
-
-        def step(t, _):
-            kk = base + t
-            prev = prev_out[...]
-
-            ch = shift_local(ch_out[...], ts_ref[0, t])
-            ch_out[...] = ch
-            sub = jnp.where(ch == side_ch, m, -kmis)
-
-            prev_sh = shift_local(prev, inj_ref[0, t])
-            cand_d = prev2sh_out[...] + sub
-            score = jnp.maximum(cand_d, jnp.maximum(prev_sh, prev) - d)
-
-            # diagonal 0: the DP seed emerges at device 0's cell (0,0)
-            @pl.when((kk == 0) & (seed == 1))
-            def _():
-                prev_out[...] = jnp.where(at0, jnp.int32(0), score)
-
-            @pl.when((kk != 0) | (seed != 1))
-            def _():
-                prev_out[...] = score
-
-            prev2sh_out[...] = prev_sh
-
-            if traceback:
-                score_d = score + d
-                arrows = (
-                    (cand_d == score).astype(jnp.int32)
-                    + (prev == score_d).astype(jnp.int32) * 2
-                    + (prev_sh == score_d).astype(jnp.int32) * 4
-                )
-                r4 = jnp.bitwise_and(t, 3)
-                word = arrows << (r4 * 8)
-
-                @pl.when(r4 == 0)
-                def _():
-                    pack_ref[...] = word
-
-                @pl.when(r4 != 0)
-                def _():
-                    pack_ref[...] = pack_ref[...] | word
-
-                @pl.when(r4 == 3)
-                def _():
-                    words_ref[pl.ds(t // 4, 1), :, :] = pack_ref[...][None]
-
-            emit_ref[0, t] = prev_out[R - 1, LANES - 1]
-
-            @pl.when((kk == k_corner) & (corner_jl >= 0))
-            def _():
-                hit = (r_iota == corner_jl // LANES) & (
-                    l_iota == corner_jl % LANES
-                )
-                cap_out[0, 0] = jnp.sum(
-                    jnp.where(hit, prev_out[...], 0)
-                )
-
-            return 0
-
-        jax.lax.fori_loop(0, C, step, 0)
-
-    return kernel
-
-
-def _build_fold_chunk_call(R: int, C: int, traceback: bool, interpret: bool):
-    out_shapes = [
-        jax.ShapeDtypeStruct((R, LANES), jnp.int32),  # prev
-        jax.ShapeDtypeStruct((R, LANES), jnp.int32),  # prev2sh
-        jax.ShapeDtypeStruct((R, LANES), jnp.int32),  # ch
-        jax.ShapeDtypeStruct((1, 1), jnp.int32),      # cap
-        jax.ShapeDtypeStruct((1, C), jnp.int32),      # emits
-    ]
-    out_specs = [
-        pl.BlockSpec(memory_space=pltpu.VMEM),
-        pl.BlockSpec(memory_space=pltpu.VMEM),
-        pl.BlockSpec(memory_space=pltpu.VMEM),
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-        pl.BlockSpec(memory_space=pltpu.SMEM),
-    ]
-    scratch = []
-    if traceback:
-        out_shapes.append(
-            jax.ShapeDtypeStruct((C // 4, R, LANES), jnp.int32)
-        )
-        out_specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))
-        scratch.append(pltpu.VMEM((R, LANES), jnp.int32))
-    return pl.pallas_call(
-        _make_fold_chunk_kernel(R, C, traceback),
-        out_shape=tuple(out_shapes),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # s
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # ts
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # inj
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # side fold
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # prev
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # prev2sh
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # ch
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # cap
-        ],
-        out_specs=tuple(out_specs),
-        scratch_shapes=scratch,
-        input_output_aliases={4: 0, 5: 1, 6: 2},
-        interpret=interpret,
-    )
-
-
-def _make_fold_chunk_kernel_blocked(FB, C, nb, unroll, traceback=False):
-    """Register-blocked fold-chunk kernel (engine ``pallasb``) — same
-    recurrence + natural-boundary semantics as
-    :func:`_make_fold_chunk_kernel` (needleman-wunsch.c:418-510 /
-    computation.c:96-120), restructured with the banded kernel's
-    register economy (fill_pallas_banded.py):
-
-    * grid = (nb,) over FB-sublane fold-row blocks.  Within a block
-      the fold order is SUBLANE-fastest (``j_local = lane*FB + r``),
-      so the per-diagonal shift is one sublane ``concatenate`` with a
-      (1,128) carry row — no full-block lane rolls or selects (the
-      monolithic kernel pays ~8 extra ops/step for its lane-fastest
-      fold, and streams all state through VMEM every step).
-    * the C-step loop runs ``unroll`` diagonals per fori iteration
-      with prev/prev2sh/ch in vector registers (load once / store
-      once per iteration), and the edge stream moves in whole aligned
-      (8,128) register slabs — per-step single-row VMEM accesses cost
-      ~10x the vector math at this block size.
-    * blocks hand their per-step last-fold-row state to the next
-      block through ping-pong VMEM planes addressed STATICALLY (the
-      loop body is instantiated per write-parity; a dynamic leading
-      plane index de-pipelines Mosaic's scheduler).  Edge-row layout:
-      lane 0 = prev edge (pre-rolled), lane 1 = ch edge — the char
-      entering the next block's row 0 at step t+1 IS the char leaving
-      this block's last row at step t, so the top-char relay rides
-      the same stream and no per-step SMEM scalar broadcasts remain.
-      Slot t+8 holds the post-step-t edges, slot 7 the block's
-      pre-loop tail (next block's step-0 fill); block 0 bulk-copies
-      the parent halo plane (with its own row-0 chars pre-merged into
-      lane 1 by the phase wrapper) into its read side.
-    * the corner capture runs in a dedicated loop instantiation only
-      on the one phase whose diagonal window contains the corner — no
-      per-step control flow in the steady-state loop.
-    * per-block activity windows: a block entirely before the
-      wavefront (base+C-1 < j_min) or strictly past the table
-      (base > A + j_max + 1) skips its compute and copies state
-      through (it still publishes its tail slot).  Skipped values can
-      only ever feed out-of-table cells (dependency columns never
-      decrease), exact under the same small-parameter NEG_INF-decay
-      contract as the chunk-level ``active`` flag — and it recovers
-      most of the (A+N)xN rhombus overhead the monolithic front pays
-      at small meshes.
-
-    Refs (in order):
-      s_ref:      SMEM (1, 10) — m, k, d, base, k_corner, corner_jl,
-                  seed, A, jg0 (= p*H, the device's global row
-                  offset: a cell's column is kk - jg0 - j_local, so
-                  the activity windows must be computed in GLOBAL
-                  rows), spare
-      injp_ref:   VMEM (C+8, 128) — parent halo plane: lane 0 = halo
-                  value, lane 1 = row-0 entering char, rows pre-offset
-                  to the stream's slot layout
-      side_ref:   VMEM (FB, 128) — this block's folded side chars
-                  (sublane-fastest fold)
-      prev_in / prev2sh_in / ch_in: VMEM (FB, 128) — carried state
-      cap_in:     SMEM (1, 1)
-      outs:       prev / prev2sh / ch blocks, cap SMEM (1, 1),
-                  emits VMEM (C, 128) (last block's per-step edge,
-                  value in lane 0), [words VMEM (C//16, FB, 128) —
-                  2-bit greedy walk codes, 16 diagonals per int32
-                  word little-endian (the ``pack_bits=2`` convention:
-                  0 diag, 1 left, 2 up; needleman-wunsch.c:305-324
-                  priority), accumulated in a vector register across
-                  each 16-step unroll round and stored once per
-                  round — the segment-relay walk is greedy-only, so
-                  tie masks are never materialized and arrow HBM +
-                  store bandwidth drop 4x vs the monolithic kernel's
-                  8-bit cells]
-      scratch:    e0 / e1 VMEM (C+8, 128) ping-pong stream planes
-    """
-    if traceback:
-        assert unroll == 16 and C % 16 == 0, (unroll, C)
-
-    def kernel(*refs):
-        (
-            s_ref, injp_ref, side_ref, prev_in, prev2sh_in, ch_in,
-            cap_in, prev_out, prev2sh_out, ch_out, cap_out, emits_ref,
-        ) = refs[:12]
-        words_ref = refs[12] if traceback else None
-        e0, e1 = refs[12 + traceback:]
-        pid = pl.program_id(0)
-        m = s_ref[0, 0]
-        kmis = s_ref[0, 1]
-        d = s_ref[0, 2]
-        base = s_ref[0, 3]
-        k_corner = s_ref[0, 4]
-        corner_jl = s_ref[0, 5]
-        seed = s_ref[0, 6]
-        A = s_ref[0, 7]
-        jg0 = s_ref[0, 8]
-
-        j_min = pid * (FB * LANES)
-        j_max = j_min + FB * LANES - 1
-        active = (base + C - 1 >= jg0 + j_min) & (
-            base <= A + jg0 + j_max + 1
-        )
-        wr0 = (pid & 1) == 0  # write e0 / read e1 when true
-        is_last = pid == nb - 1
-
-        # cap must be defined even when block 0 skips; the corner
-        # owner's hit write (below) lands later in grid order and wins
-        @pl.when(pid == 0)
-        def _():
-            cap_out[0, 0] = cap_in[0, 0]
-            # halo plane -> block 0's read side (e1 = odd blocks'
-            # write side; block 1 overwrites it only after block 0 has
-            # consumed it — the grid is sequential)
-            e1[...] = injp_ref[...]
-
-        r_iota = jax.lax.broadcasted_iota(jnp.int32, (FB, LANES), 0)
-        l_iota = jax.lax.broadcasted_iota(jnp.int32, (FB, LANES), 1)
-        at0 = (r_iota == 0) & (l_iota == 0)
-        lane0_row = (
-            jax.lax.broadcasted_iota(jnp.int32, (1, LANES), 1) == 0
-        )
-        # corner fold index -> sublane-fastest block position
-        cl = corner_jl - j_min
-        own_corner = (corner_jl >= j_min) & (corner_jl <= j_max)
-        corner_phase = (
-            own_corner & (k_corner >= base) & (k_corner < base + C)
-        )
-        hit_mask = (r_iota == cl % FB) & (l_iota == cl // FB)
-        seed_blk = (seed == 1) & (pid == 0) & (base == 0)
-
-        def edge_row(prev_last, ch_last):
-            # lane 0 = prev edge, lane 1 = ch edge, rest unused
-            return jnp.where(
-                lane0_row,
-                pltpu.roll(prev_last, 1, axis=1),
-                pltpu.roll(ch_last, 2, axis=1),
-            )
-
-        # the pre-loop tail: next block's step-0 fill (slot 7),
-        # published even when skipped — its state IS the tail
-        tail = edge_row(prev_in[FB - 1:FB, :], ch_in[FB - 1:FB, :])
-
-        @pl.when(wr0)
-        def _():
-            e0[pl.ds(7, 1), :] = tail
-
-        @pl.when(~wr0)
-        def _():
-            e1[pl.ds(7, 1), :] = tail
-
-        @pl.when(~active)
-        def _():
-            prev_out[...] = prev_in[...]
-            prev2sh_out[...] = prev2sh_in[...]
-            ch_out[...] = ch_in[...]
-
-        side_ch = side_ref[...]
-
-        def substep(t, prev, prev2sh, ch, fill_row, u, with_corner):
-            carry_p = jnp.where(
-                lane0_row, fill_row,
-                pltpu.roll(prev[FB - 1:FB, :], 1, axis=1),
-            )
-            carry_c = jnp.where(
-                lane0_row,
-                pltpu.roll(fill_row, LANES - 1, axis=1),  # lane1 -> 0
-                pltpu.roll(ch[FB - 1:FB, :], 1, axis=1),
-            )
-            if FB > 1:
-                prev_sh = jnp.concatenate([carry_p, prev[:-1, :]], axis=0)
-                ch = jnp.concatenate([carry_c, ch[:-1, :]], axis=0)
-            else:
-                # FB == 1: the block is its own carry row — a
-                # concatenate with the empty prev[:-1] slice is an
-                # invalid (zero-row) vector type under Mosaic
-                prev_sh = carry_p
-                ch = carry_c
-            sub = jnp.where(ch == side_ch, m, -kmis)
-            cand_d = prev2sh + sub
-            score = jnp.maximum(
-                cand_d, jnp.maximum(prev_sh, prev) - d
-            )
-            if u == 0:
-                # band-0 DP seed: overwrite the t = 0 garbage with
-                # cell (0,0) = 0 before step t = 1 consumes it
-                score = jnp.where(
-                    at0 & (seed_blk & (t == 0)), jnp.int32(0), score
-                )
-            if with_corner:
-                @pl.when(base + t == k_corner)
-                def _():
-                    cap_out[0, 0] = jnp.sum(
-                        jnp.where(hit_mask, score, 0)
-                    )
-            if traceback:
-                # greedy 2-bit code from the same equality flags as
-                # the monolithic kernel's 3-bit mask, collapsed by
-                # the diag > left > up priority the relay walk applies
-                # (needleman-wunsch.c:305-324); `prev` is the left
-                # neighbour, `prev_sh` the up neighbour in the fold
-                code = jnp.where(
-                    cand_d == score,
-                    jnp.int32(0),
-                    jnp.where(prev == score + d, jnp.int32(1),
-                              jnp.int32(2)),
-                )
-                return score, prev_sh, ch, code
-            return score, prev_sh, ch, None
-
-        def make_step(erd, ewr, with_corner):
-            def step(i, carry):
-                # unroll diagonals per iteration: state registers and
-                # the rolling edge slab stay in vregs
-                tl0 = i * unroll
-                slab = carry
-                prev = prev_out[...]
-                prev2sh = prev2sh_out[...]
-                ch = ch_out[...]
-                word = None
-                for g in range(unroll // 8):
-                    t8 = tl0 + g * 8
-                    # fill slots [t8+7, t8+15): prev slab's row 7,
-                    # next slab's rows 0..6
-                    nslab = erd[pl.ds(t8 + 8, 8), :]
-                    acc = slab  # any (8,128) init; fully pushed over
-                    for u in range(8):
-                        fill_row = (
-                            slab[7:8, :] if u == 0
-                            else nslab[u - 1:u, :]
-                        )
-                        prev, prev2sh, ch, code = substep(
-                            t8 + u, prev, prev2sh, ch, fill_row,
-                            g * 8 + u, with_corner,
-                        )
-                        if traceback:
-                            # bit slot is static: t % 16 == g*8 + u
-                            contrib = code << ((g * 8 + u) * 2)
-                            word = (
-                                contrib if word is None
-                                else word | contrib
-                            )
-                        acc = jnp.concatenate(
-                            [
-                                acc[1:, :],
-                                edge_row(
-                                    prev[FB - 1:FB, :],
-                                    ch[FB - 1:FB, :],
-                                ),
-                            ],
-                            axis=0,
-                        )
-                    ewr[pl.ds(t8 + 8, 8), :] = acc
-                    slab = nslab
-                if traceback:
-                    # unroll == 16: exactly one packed word per round
-                    words_ref[pl.ds(i, 1), :, :] = word[None]
-                prev_out[...] = prev
-                prev2sh_out[...] = prev2sh
-                ch_out[...] = ch
-                return slab
-
-            return step
-
-        def run(erd, ewr, with_corner):
-            prev_out[...] = prev_in[...]
-            prev2sh_out[...] = prev2sh_in[...]
-            ch_out[...] = ch_in[...]
-            slab0 = erd[pl.ds(0, 8), :]
-            jax.lax.fori_loop(
-                0, C // unroll, make_step(erd, ewr, with_corner), slab0
-            )
-
-        # four static instantiations: write-parity x corner-phase (a
-        # dynamic plane index or a per-step corner branch in the
-        # steady-state loop both de-pipeline the scheduler)
-        @pl.when(active & wr0 & ~corner_phase)
-        def _():
-            run(e1, e0, False)
-
-        @pl.when(active & wr0 & corner_phase)
-        def _():
-            run(e1, e0, True)
-
-        @pl.when(active & ~wr0 & ~corner_phase)
-        def _():
-            run(e0, e1, False)
-
-        @pl.when(active & ~wr0 & corner_phase)
-        def _():
-            run(e0, e1, True)
-
-        last_plane = e0 if (nb - 1) % 2 == 0 else e1
-
-        @pl.when(is_last)
-        def _():
-            emits_ref[...] = last_plane[8:C + 8, :]
-
-    return kernel
-
-
-def _pick_unroll(C: int, traceback: bool = False) -> int:
-    """Diagonals per register round-trip; must be a multiple of 8 (the
-    loop body works in whole aligned edge slabs), and C a multiple of
-    the unroll (the builder enforces C % 8 == 0; traceback additionally
-    requires C % 16 == 0 so each round flushes exactly one packed
-    walk word)."""
-    if traceback:
-        return 16
-    return 16 if C % 16 == 0 else 8
-
-
-def _build_fold_chunk_call_blocked(R, FB, C, interpret, traceback=False):
-    if C % 8:
-        # edge slabs flush only at t % 8 == 7: a chunk that isn't
-        # 8-aligned would leave its last C % 8 edge slots stale and
-        # feed the next block garbage fills on REAL steps
-        raise ValueError(f"pallasb chunk must be a multiple of 8, got {C}")
-    if traceback and C % 16:
-        # walk words pack 16 diagonals each and store once per
-        # 16-step unroll round: an unaligned chunk would drop the
-        # last C % 16 diagonals' codes from every chunk
-        raise ValueError(
-            f"pallasb traceback chunk must be a multiple of 16, got {C}"
-        )
-    nb = R // FB
-    smem = functools.partial(pl.BlockSpec, memory_space=pltpu.SMEM)
-    vmem = functools.partial(pl.BlockSpec, memory_space=pltpu.VMEM)
-    state = vmem((FB, LANES), lambda b: (b, 0))
-    full = lambda shape: vmem(shape, lambda b: (0, 0))
-    out_shapes = [
-        jax.ShapeDtypeStruct((R, LANES), jnp.int32),   # prev
-        jax.ShapeDtypeStruct((R, LANES), jnp.int32),   # prev2sh
-        jax.ShapeDtypeStruct((R, LANES), jnp.int32),   # ch
-        jax.ShapeDtypeStruct((1, 1), jnp.int32),       # cap
-        jax.ShapeDtypeStruct((C, LANES), jnp.int32),   # emits
-    ]
-    out_specs = [
-        state, state, state,
-        smem((1, 1), lambda b: (0, 0)),
-        full((C, LANES)),
-    ]
-    if traceback:
-        out_shapes.append(
-            jax.ShapeDtypeStruct((C // 16, R, LANES), jnp.int32)
-        )
-        out_specs.append(vmem((C // 16, FB, LANES), lambda b: (0, b, 0)))
-    return pl.pallas_call(
-        _make_fold_chunk_kernel_blocked(
-            FB, C, nb, _pick_unroll(C, traceback), traceback
-        ),
-        grid=(nb,),
-        out_shape=tuple(out_shapes),
-        in_specs=[
-            smem((1, 10), lambda b: (0, 0)),               # s
-            full((C + 8, LANES)),                          # halo plane
-            state,                                         # side fold
-            state,                                         # prev
-            state,                                         # prev2sh
-            state,                                         # ch
-            smem((1, 1), lambda b: (0, 0)),                # cap
-        ],
-        out_specs=tuple(out_specs),
-        scratch_shapes=[
-            pltpu.VMEM((C + 8, LANES), jnp.int32),
-            pltpu.VMEM((C + 8, LANES), jnp.int32),
-        ],
-        interpret=interpret,
-    )
-
-
-def _pick_fb(B: int, nseq: int) -> int:
-    """Fold-row block height (sublanes) for the register-blocked
-    fold-chunk kernel (engine ``pallasb``).
-
-    Bigger blocks feed the VPU's issue ports with more independent
-    (8,128) vregs per vector op (the per-step small-row work is
-    block-size-invariant); smaller blocks waste fewer padded rows
-    (the row quantum is ``nseq*128*FB``).  Pick the cheapest
-    (padding x per-cell-rate penalty) product — penalties measured on
-    the v5e at 1x100kb (88/144/163/155 GCUPS for FB 32/64/96/128,
-    padding-normalized).  Deterministic in (B, nseq), so every caller
-    recomputes the same FB."""
-    base = B + 1
-    best, best_cost = 1, float("inf")
-    for fb, pen in (
-        (96, 1.0), (128, 1.01), (64, 1.17), (32, 2.0), (16, 3.5),
-        (8, 6.0), (4, 9.0), (2, 13.0), (1, 20.0),
-    ):
-        n_pad = _round_up(base, nseq * LANES * fb)
-        cost = (n_pad / base) * pen
-        if cost < best_cost:
-            best, best_cost = fb, cost
-    return best
-
-
-def _row_quantum(B, nseq, engine):
-    if engine == "pallasb":
-        return nseq * LANES * _pick_fb(B, nseq)
-    if engine == "pallas":
-        return nseq * LANES
-    return nseq
-
-
-def _tile_geometry(A, B, nseq, C, engine):
-    """(N_pad, H, R, nch, nphases) for the 2-D block-wavefront tiling."""
-    N_pad = _round_up(B + 1, _row_quantum(B, nseq, engine))
+def _tile_geometry(A, B, nseq, C):
+    """(N_pad, H, nch, nphases) for the 2-D block-wavefront tiling."""
+    N_pad = _round_up(B + 1, nseq)
     H = N_pad // nseq
-    R = H // LANES if engine in ("pallas", "pallasb") else 0
     K_pad = _round_up(A + N_pad, C)
     nch = K_pad // C
-    return N_pad, H, R, nch, nch + nseq - 1
+    return N_pad, H, nch, nch + nseq - 1
 
 
 def _tile_inputs(top, side, N_pad):
@@ -664,133 +72,6 @@ def _tile_inputs(top, side, N_pad):
     pad = jnp.full((N_pad,), -4, jnp.int32)
     top_ext = jnp.concatenate([pad, top_rev, pad])
     return side_sh, top_ext
-
-
-def _make_pallas_phase(
-    p, side_fold, top_ext, fold_call, m, k, d, C, nch, A, B, H, N_pad,
-    axis, perm_down, corner_jl, seed,
-):
-    """Pallas-engine phase body (fold-chunk kernel per phase); shared by
-    the monolithic fill and the span-wise resumable fill."""
-
-    def phase(st, s):
-        c = s - p
-        active = (c >= 0) & (c < nch)
-        cc = jnp.clip(c, 0, nch - 1)
-        base = cc * C
-
-        inj = jnp.concatenate([st["tail"][None], st["recv"][:-1]])
-        inj = jnp.where(p == 0, NEG_INF, inj)
-        # top char entering local row 0 at step t: index decreases with
-        # t, so slice once and reverse
-        ts = jax.lax.dynamic_slice(
-            top_ext, (N_pad + A - base - (C - 1) + p * H,), (C,)
-        )[::-1]
-
-        sv = jnp.stack(
-            [
-                jnp.int32(m), jnp.int32(k), jnp.int32(d), base,
-                jnp.int32(A + B), corner_jl, seed, jnp.int32(0),
-            ]
-        )[None]
-        outs = fold_call(
-            sv, ts[None], inj[None], side_fold,
-            st["prev"], st["prev2sh"], st["ch"], st["cap"],
-        )
-        prev_n, prev2sh_n, ch_n, cap_n, emits_n = outs[:5]
-        emits = emits_n[0]
-
-        def keep(new, old):
-            return jnp.where(active, new, old)
-
-        new_st = dict(
-            prev=keep(prev_n, st["prev"]),
-            prev2sh=keep(prev2sh_n, st["prev2sh"]),
-            ch=keep(ch_n, st["ch"]),
-            cap=keep(cap_n, st["cap"]),
-            recv=jax.lax.ppermute(
-                jnp.where(active, emits, NEG_INF), axis, perm_down
-            ),
-            tail=keep(st["recv"][-1], st["tail"]),
-        )
-        return new_st, (outs[5] if len(outs) > 5 else None)
-
-    return phase
-
-
-def _make_pallasb_phase(
-    p, side_fold, top_ext, blocked_call, m, k, d, C, nch, A, B, H,
-    N_pad, axis, perm_down, corner_jl, seed, FB, traceback=False,
-):
-    """Phase body for the register-blocked fold-chunk kernel.
-    Same carry dict as the pallas engine; differences:
-    the parent halo ships as a (C+8, 128) lane-0 plane pre-offset to
-    the kernel's edge-stream slot layout, the per-block row-0 char
-    streams are precomputed host-side XLA gathers, and the emit stream
-    comes back as a (C, 128) lane-0 plane from the last block (forced
-    to NEG_INF when that block never ran — an unwritten emit buffer
-    must not leak garbage into the child's pre-arrival cells, whose
-    values flow INTO the table as columns advance)."""
-    R = H // LANES
-    nb = R // FB
-    joff = N_pad + A + p * H
-    t_idx = jnp.arange(C, dtype=jnp.int32)
-    Ltop = top_ext.shape[0]
-
-    def phase(st, s):
-        c = s - p
-        active = (c >= 0) & (c < nch)
-        cc = jnp.clip(c, 0, nch - 1)
-        base = cc * C
-
-        inj = jnp.concatenate([st["tail"][None], st["recv"][:-1]])
-        inj = jnp.where(p == 0, NEG_INF, inj)
-        # char entering block 0's fold row 0 at step t (same clamped
-        # framed-top semantics as the pallas engine's ts slice: clamp
-        # only ever lands on out-of-table cells); blocks > 0 receive
-        # their row-0 chars through the edge stream's lane-1 relay
-        ch0 = jnp.take(
-            top_ext, jnp.clip(joff - base - t_idx, 0, Ltop - 1)
-        )
-        injp = (
-            jnp.zeros((C + 8, LANES), jnp.int32)
-            .at[7:C + 7, 0].set(inj)
-            .at[7:C + 7, 1].set(ch0)
-        )
-        sv = jnp.stack(
-            [
-                jnp.int32(m), jnp.int32(k), jnp.int32(d), base,
-                jnp.int32(A + B), corner_jl, seed, jnp.int32(A),
-                p * jnp.int32(H), jnp.int32(0),
-            ]
-        )[None]
-        outs = blocked_call(
-            sv, injp, side_fold,
-            st["prev"], st["prev2sh"], st["ch"], st["cap"],
-        )
-        prev_n, prev2sh_n, ch_n, cap_n, emits128 = outs[:5]
-        emits = emits128[:, 0]
-        emits = jnp.where(
-            base + C - 1 < p * H + (nb - 1) * FB * LANES,
-            NEG_INF, emits,
-        )
-
-        def keep(new, old):
-            return jnp.where(active, new, old)
-
-        new_st = dict(
-            prev=keep(prev_n, st["prev"]),
-            prev2sh=keep(prev2sh_n, st["prev2sh"]),
-            ch=keep(ch_n, st["ch"]),
-            cap=keep(cap_n, st["cap"]),
-            recv=jax.lax.ppermute(
-                jnp.where(active, emits, NEG_INF), axis, perm_down
-            ),
-            tail=keep(st["recv"][-1], st["tail"]),
-        )
-        return new_st, (outs[5] if traceback else None)
-
-    return phase
 
 
 def _make_scan_phase(
@@ -941,54 +222,11 @@ def _make_relay_walk(p, axis, A, H, nseq, vary0):
     return relay_walk
 
 
-def _make_arrow_at_pallas(arr_phases, p, C, R):
-    """Cell reader over the pallas engine's packed per-phase arrows
-    ((nphases, C//4, R, 128) int32; chunk c sits at phase c + p)."""
-
-    def arrow_at(i2, j2, H):
-        jloc = j2 - p * H
-        kk = i2 + j2
-        c = kk // C
-        t = kk - c * C
-        # multi-dim index: flattening first materializes a tiled-layout
-        # copy of the arrow stack (banded_traceback._make_runs_walk_loop)
-        w = arr_phases[c + p, t // 4, jloc // LANES, jloc % LANES]
-        return (w >> ((t % 4) * 8)) & 0xFF
-
-    return arrow_at
-
-
-def _make_arrow_at_pallasb(arr_phases, p, C, FB):
-    """Cell reader over the pallasb engine's 2-bit greedy walk words
-    ((nphases, C//16, R, 128) int32; chunk c sits at phase c + p).
-
-    The fold within each FB-row block is SUBLANE-fastest
-    (``j_local = b*FB*128 + lane*FB + f``, the layout of
-    ``side_fold`` in :func:`_huge_pair_device`), and 16 diagonals
-    pack per word little-endian.  Codes (0 diag, 1 left, 2 up) are
-    translated to the 3-bit mask convention the relay walk consumes
-    (``1 << code``): the greedy priority diag > left > up is
-    identical under both encodings."""
-
-    def arrow_at(i2, j2, H):
-        jloc = j2 - p * H
-        kk = i2 + j2
-        c = kk // C
-        t = kk - c * C
-        blk = jloc // (FB * LANES)
-        rem = jloc - blk * (FB * LANES)
-        w = arr_phases[c + p, t // 16, blk * FB + rem % FB, rem // FB]
-        code = (w >> ((t % 16) * 2)) & 3
-        return jnp.int32(1) << code
-
-    return arrow_at
-
-
 def _make_arrow_at_scan(arr_phases, p, C, H):
     """Cell reader over the scan engine's per-phase arrows
     ((nphases, C, H) uint8; chunk c sits at phase c + p)."""
 
-    def arrow_at(i2, j2, _H):
+    def arrow_at(i2, j2):
         jloc = j2 - p * H
         kk = i2 + j2
         c = kk // C
@@ -997,177 +235,76 @@ def _make_arrow_at_scan(arr_phases, p, C, H):
     return arrow_at
 
 
+def _shard_mapped(fn, mesh, in_specs, out_specs):
+    return jax.shard_map(
+        fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+        check_vma=False,
+    )
+
+
+def _scan_state0(H, C, vary0):
+    """The per-device carry of the phase scan: diag 0 (the DP seed) is
+    produced by the kk == 0 step override, so the registers start one
+    diagonal EARLIER (all out-of-table)."""
+    return dict(
+        prev=jnp.full((H,), NEG_INF, jnp.int32) + vary0,
+        prev2=jnp.full((H,), NEG_INF, jnp.int32) + vary0,
+        hprev=jnp.int32(NEG_INF) + vary0,  # diag-halo carry (kk-2)
+        cap=jnp.int32(NEG_INF) + vary0,
+        recv=jnp.full((C,), NEG_INF, jnp.int32) + vary0,
+        tail=jnp.int32(NEG_INF) + vary0,  # parent chunk c-1 last diag
+    )
+
+
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "m", "k", "d", "mesh", "axis", "chunk", "traceback", "engine",
-        "interpret",
-    ),
+    static_argnames=("m", "k", "d", "mesh", "axis", "chunk", "traceback"),
 )
 def _huge_pair_device(
     top, side, *, m: int, k: int, d: int, mesh: Mesh, axis: str,
-    chunk: int, traceback: bool, engine: str = "scan",
-    interpret: bool = False,
+    chunk: int, traceback: bool,
 ):
     A = top.shape[0]
     B = side.shape[0]
     nseq = mesh.shape[axis]
     C = chunk
-    if engine == "pallas" and traceback and (C < 4 or C % 4):
-        # the fold-chunk kernel packs 4 diagonals per int32 word and
-        # stores only at t % 4 == 3: a chunk that isn't 4-aligned would
-        # silently drop the last C % 4 diagonals' arrows from every
-        # chunk and corrupt the walk
-        raise ValueError(f"traceback chunk must be a multiple of 4, got {C}")
-    if engine == "pallasb" and traceback and (C < 16 or C % 16):
-        # the blocked kernel packs 16 diagonals per walk word and
-        # flushes once per 16-step unroll round
-        raise ValueError(
-            f"pallasb traceback chunk must be a multiple of 16, got {C}"
-        )
-
-    N_pad, H, R, nch, nphases = _tile_geometry(A, B, nseq, C, engine)
+    N_pad, H, nch, nphases = _tile_geometry(A, B, nseq, C)
     side_sh, top_ext = _tile_inputs(top, side, N_pad)
-
     perm_down = [(i, (i + 1) % nseq) for i in range(nseq)]  # p -> p+1
-
-    FB = _pick_fb(B, nseq) if engine == "pallasb" else 0
-    if engine == "pallas":
-        fold_call = _build_fold_chunk_call(R, C, traceback, interpret)
-    elif engine == "pallasb":
-        fold_call = _build_fold_chunk_call_blocked(
-            R, FB, C, interpret, traceback
-        )
-    else:
-        fold_call = None
 
     def local(side_local, top_ext):
         p = jax.lax.axis_index(axis)
-        jl = jnp.arange(H, dtype=jnp.int32)
-        jg = p * H + jl
+        jg = p * H + jnp.arange(H, dtype=jnp.int32)
         vary0 = side_local.sum() * 0  # shard_map varying-type anchor
-        relay_walk = _make_relay_walk(p, axis, A, H, nseq, vary0)
-
-        # diag 0 (the DP seed) is produced by the kk == 0 step override;
-        # the registers start one diagonal EARLIER (all out-of-table)
-        if engine == "pallasb":
-            state0 = dict(
-                prev=jnp.full((R, LANES), NEG_INF, jnp.int32) + vary0,
-                prev2sh=jnp.full((R, LANES), NEG_INF, jnp.int32) + vary0,
-                ch=jnp.full((R, LANES), -4, jnp.int32) + vary0,
-                cap=jnp.full((1, 1), NEG_INF, jnp.int32) + vary0,
-                recv=jnp.full((C,), NEG_INF, jnp.int32) + vary0,
-                tail=jnp.int32(NEG_INF) + vary0,
-            )
-            # sublane-fastest fold within each FB-row block:
-            # side_fold[b*FB + r, ln] = side_local[b*FB*128 + ln*FB + r]
-            nb = R // FB
-            side_fold = (
-                side_local.reshape(nb, LANES, FB)
-                .transpose(0, 2, 1)
-                .reshape(R, LANES)
-            )
-            corner_jl = jnp.where(B // H == p, B - p * H, -1)
-            seed = (p == 0).astype(jnp.int32)
-            phase = _make_pallasb_phase(
-                p, side_fold, top_ext, fold_call, m, k, d, C, nch,
-                A, B, H, N_pad, axis, perm_down, corner_jl, seed, FB,
-                traceback,
-            )
-            st, arr_phases = jax.lax.scan(
-                phase, state0, jnp.arange(nphases, dtype=jnp.int32)
-            )
-            score = jax.lax.pmax(st["cap"][0, 0], axis)
-            if not traceback:
-                return score
-            arrow_at = _make_arrow_at_pallasb(arr_phases, p, C, FB)
-            return relay_walk(B, score, lambda i2, j2: arrow_at(i2, j2, H))
-        if engine == "pallas":
-            state0 = dict(
-                prev=jnp.full((R, LANES), NEG_INF, jnp.int32) + vary0,
-                prev2sh=jnp.full((R, LANES), NEG_INF, jnp.int32) + vary0,
-                ch=jnp.full((R, LANES), -4, jnp.int32) + vary0,
-                cap=jnp.full((1, 1), NEG_INF, jnp.int32) + vary0,
-                recv=jnp.full((C,), NEG_INF, jnp.int32) + vary0,
-                tail=jnp.int32(NEG_INF) + vary0,
-            )
-            side_fold = side_local.reshape(R, LANES)
-            corner_jl = jnp.where(B // H == p, B - p * H, -1)
-            seed = (p == 0).astype(jnp.int32)
-            phase = _make_pallas_phase(
-                p, side_fold, top_ext, fold_call, m, k, d, C, nch,
-                A, B, H, N_pad, axis, perm_down, corner_jl, seed,
-            )
-            st, arr_phases = jax.lax.scan(
-                phase, state0, jnp.arange(nphases, dtype=jnp.int32)
-            )
-            score = jax.lax.pmax(st["cap"][0, 0], axis)
-            if not traceback:
-                return score
-            arrow_at = _make_arrow_at_pallas(arr_phases, p, C, R)
-            return relay_walk(B, score, lambda i2, j2: arrow_at(i2, j2, H))
-
-        state0 = dict(
-            prev=jnp.full((H,), NEG_INF, jnp.int32) + vary0,
-            prev2=jnp.full((H,), NEG_INF, jnp.int32) + vary0,
-            hprev=jnp.int32(NEG_INF) + vary0,  # diag-halo carry (kk-2)
-            cap=jnp.int32(NEG_INF) + vary0,
-            recv=jnp.full((C,), NEG_INF, jnp.int32) + vary0,
-            tail=jnp.int32(NEG_INF) + vary0,  # parent chunk c-1 last diag
-        )
         phase = _make_scan_phase(
             p, jg, side_local, top_ext, m, k, d, C, nch, A, B, H, N_pad,
             axis, perm_down, traceback,
         )
         st, arr_phases = jax.lax.scan(
-            phase, state0, jnp.arange(nphases, dtype=jnp.int32)
+            phase, _scan_state0(H, C, vary0),
+            jnp.arange(nphases, dtype=jnp.int32),
         )
         score = jax.lax.pmax(st["cap"], axis)
         if not traceback:
             return score
         arrow_at = _make_arrow_at_scan(arr_phases, p, C, H)
-        return relay_walk(B, score, lambda i2, j2: arrow_at(i2, j2, H))
+        relay_walk = _make_relay_walk(p, axis, A, H, nseq, vary0)
+        return relay_walk(B, score, arrow_at)
 
-    if traceback:
-        out_specs = (P(), P(), P())
-    else:
-        out_specs = P()
-    try:
-        mapped = shard_map(
-            local, mesh=mesh, in_specs=(P(axis), P()),
-            out_specs=out_specs, check_vma=False,
-        )
-    except TypeError:  # pragma: no cover - older jax spelling
-        mapped = shard_map(
-            local, mesh=mesh, in_specs=(P(axis), P()),
-            out_specs=out_specs, check_rep=False,
-        )
+    out_specs = (P(), P(), P()) if traceback else P()
+    mapped = _shard_mapped(local, mesh, (P(axis), P()), out_specs)
     return mapped(side_sh, top_ext)
-
-
-def _shard_mapped(fn, mesh, in_specs, out_specs):
-    try:
-        return shard_map(
-            fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=False,
-        )
-    except TypeError:  # pragma: no cover - older jax spelling
-        return shard_map(
-            fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_rep=False,
-        )
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "A", "B", "m", "k", "d", "mesh", "axis", "chunk", "span",
-        "traceback", "engine", "interpret",
+        "A", "B", "m", "k", "d", "mesh", "axis", "chunk", "span", "traceback",
     ),
 )
 def _huge_span_device(
     side_sh, top_ext, state, s0, *, A, B, m, k, d, mesh, axis,
-    chunk, span, traceback, engine, interpret,
+    chunk, span, traceback,
 ):
     """Phases [s0, s0 + span) of the tiled fill, state in/out.
 
@@ -1179,49 +316,17 @@ def _huge_span_device(
     ``None`` when not tracing arrows."""
     nseq = mesh.shape[axis]
     C = chunk
-    N_pad, H, R, nch, _ = _tile_geometry(A, B, nseq, C, engine)
+    N_pad, H, nch, _ = _tile_geometry(A, B, nseq, C)
     perm_down = [(i, (i + 1) % nseq) for i in range(nseq)]
-    FB = _pick_fb(B, nseq) if engine == "pallasb" else 0
-    if engine == "pallas":
-        fold_call = _build_fold_chunk_call(R, C, traceback, interpret)
-    elif engine == "pallasb":
-        fold_call = _build_fold_chunk_call_blocked(
-            R, FB, C, interpret, traceback
-        )
-    else:
-        fold_call = None
 
     def local(side_local, top_ext, st_local, s0):
         p = jax.lax.axis_index(axis)
         st = jax.tree.map(lambda x: x[0], st_local)
-        if engine == "pallasb":
-            nb = R // FB
-            side_fold = (
-                side_local.reshape(nb, LANES, FB)
-                .transpose(0, 2, 1)
-                .reshape(R, LANES)
-            )
-            corner_jl = jnp.where(B // H == p, B - p * H, -1)
-            seed = (p == 0).astype(jnp.int32)
-            phase = _make_pallasb_phase(
-                p, side_fold, top_ext, fold_call, m, k, d, C, nch,
-                A, B, H, N_pad, axis, perm_down, corner_jl, seed, FB,
-                traceback,
-            )
-        elif engine == "pallas":
-            side_fold = side_local.reshape(R, LANES)
-            corner_jl = jnp.where(B // H == p, B - p * H, -1)
-            seed = (p == 0).astype(jnp.int32)
-            phase = _make_pallas_phase(
-                p, side_fold, top_ext, fold_call, m, k, d, C, nch,
-                A, B, H, N_pad, axis, perm_down, corner_jl, seed,
-            )
-        else:
-            jg = p * H + jnp.arange(H, dtype=jnp.int32)
-            phase = _make_scan_phase(
-                p, jg, side_local, top_ext, m, k, d, C, nch, A, B, H,
-                N_pad, axis, perm_down, traceback,
-            )
+        jg = p * H + jnp.arange(H, dtype=jnp.int32)
+        phase = _make_scan_phase(
+            p, jg, side_local, top_ext, m, k, d, C, nch, A, B, H,
+            N_pad, axis, perm_down, traceback,
+        )
         st, arr = jax.lax.scan(
             phase, st, s0 + jnp.arange(span, dtype=jnp.int32)
         )
@@ -1237,33 +342,22 @@ def _huge_span_device(
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("A", "B", "mesh", "axis", "chunk", "engine"),
+    jax.jit, static_argnames=("A", "B", "mesh", "axis", "chunk"),
 )
-def _huge_walk_sharded(arr_all, score, *, A, B, mesh, axis, chunk, engine):
+def _huge_walk_sharded(arr_all, score, *, A, B, mesh, axis, chunk):
     """Standalone segment-relay walk over fully-materialized tiled
     arrows ((nseq, nphases, ...) leading-device-axis sharded) — the
     pass a resumed config-5 run executes after its fill completes."""
     nseq = mesh.shape[axis]
     C = chunk
-    N_pad, H, R, _, _ = _tile_geometry(A, B, nseq, C, engine)
+    _, H, _, _ = _tile_geometry(A, B, nseq, C)
 
     def local(arr_local):
         p = jax.lax.axis_index(axis)
         vary0 = (arr_local.reshape(-1)[0] * 0).astype(jnp.int32)
-        arr = arr_local[0]
-        if engine == "pallasb":
-            arrow_at = _make_arrow_at_pallasb(
-                arr, p, C, _pick_fb(B, nseq)
-            )
-        elif engine == "pallas":
-            arrow_at = _make_arrow_at_pallas(arr, p, C, R)
-        else:
-            arrow_at = _make_arrow_at_scan(arr, p, C, H)
+        arrow_at = _make_arrow_at_scan(arr_local[0], p, C, H)
         relay_walk = _make_relay_walk(p, axis, A, H, nseq, vary0)
-        _, segs, ns = relay_walk(
-            B, jnp.int32(0), lambda i2, j2: arrow_at(i2, j2, H)
-        )
+        _, segs, ns = relay_walk(B, jnp.int32(0), arrow_at)
         return segs, ns
 
     mapped = _shard_mapped(local, mesh, (P(axis),), (P(), P()))
@@ -1283,27 +377,14 @@ def _stitch_segments(segs, seg_ns, nseq) -> np.ndarray:
     return np.concatenate(parts) if parts else np.zeros((0,), np.int8)
 
 
-def huge_state_init(A, B, mesh, axis, chunk, engine):
+def huge_state_init(A, B, mesh, axis, chunk):
     """Global (leading-device-axis) initial carry for the span fill."""
     nseq = mesh.shape[axis]
-    N_pad, H, R, _, _ = _tile_geometry(A, B, nseq, chunk, engine)
-    if engine in ("pallas", "pallasb"):
-        return dict(
-            prev=np.full((nseq, R, LANES), NEG_INF, np.int32),
-            prev2sh=np.full((nseq, R, LANES), NEG_INF, np.int32),
-            ch=np.full((nseq, R, LANES), -4, np.int32),
-            cap=np.full((nseq, 1, 1), NEG_INF, np.int32),
-            recv=np.full((nseq, chunk), NEG_INF, np.int32),
-            tail=np.full((nseq,), NEG_INF, np.int32),
-        )
-    return dict(
-        prev=np.full((nseq, H), NEG_INF, np.int32),
-        prev2=np.full((nseq, H), NEG_INF, np.int32),
-        hprev=np.full((nseq,), NEG_INF, np.int32),
-        cap=np.full((nseq,), NEG_INF, np.int32),
-        recv=np.full((nseq, chunk), NEG_INF, np.int32),
-        tail=np.full((nseq,), NEG_INF, np.int32),
-    )
+    _, H, _, _ = _tile_geometry(A, B, nseq, chunk)
+    return {
+        k2: np.broadcast_to(np.asarray(v), (nseq, *np.shape(v))).copy()
+        for k2, v in _scan_state0(H, chunk, np.int32(0)).items()
+    }
 
 
 @dataclasses.dataclass
@@ -1314,9 +395,8 @@ class HugeShardedResult:
 
 
 def auto_chunk(
-    A: int, B: int, nseq: int, engine: str = "pallas",
+    A: int, B: int, nseq: int,
     target_eff: float = 0.875, c_min: int = 128, c_max: int = 2048,
-    traceback: bool = False,
 ) -> int:
     """Pick the halo-chunk size C for the tiled fill.
 
@@ -1325,74 +405,40 @@ def auto_chunk(
     bubble is ``(nseq - 1) / nphases``.  Smaller C means more chunks
     and less bubble but more per-phase dispatch + ppermute overhead, so
     C is chosen as the LARGEST value that still meets ``target_eff``,
-    clamped to [c_min, c_max] and the kernel's 4-diagonal word quantum
-    (SURVEY §5.7 / VERDICT r2 item 8).
+    clamped to [c_min, c_max] (SURVEY §5.7).
     """
-    N_pad = _round_up(B + 1, _row_quantum(B, nseq, engine))
-    # word quantum: 4 (pallas packs 4 diagonals/word) or 16 (pallasb
-    # unrolls 16 and flushes 8-slab edge stages)
-    q = 16 if engine == "pallasb" else 4
-    if engine == "pallasb" and traceback:
-        # the walk-word out block double-buffers C//16 x FB x 128
-        # int32 per grid step: clamp C so it fits VMEM at any FB
-        c_max = min(c_max, 1024)
+    N_pad = _round_up(B + 1, nseq)
     if nseq <= 1:
-        return max(q, min(c_max, A + N_pad) // q * q)
+        return max(1, min(c_max, A + N_pad))
     # nch >= need  <=>  eff = nch / (nch + nseq - 1) >= target_eff
     need = int(np.ceil((nseq - 1) * target_eff / (1.0 - target_eff)))
     C = max(c_min, min(c_max, (A + N_pad) // max(need, 1)))
     # the per-phase top-char slice reads C entries of the framed top
     # (len 2*N_pad + A): clamp to the table for small pairs
-    C = min(C, A + N_pad)
-    return max(q, C // q * q)
+    return max(1, min(C, A + N_pad))
 
 
-def pipeline_efficiency(A: int, B: int, nseq: int, chunk: int,
-                        engine: str = "pallas") -> float:
+def pipeline_efficiency(A: int, B: int, nseq: int, chunk: int) -> float:
     """Useful-phase fraction ``nch / nphases`` of the tiled fill."""
-    _, _, _, nch, nphases = _tile_geometry(A, B, nseq, chunk, engine)
+    _, _, nch, nphases = _tile_geometry(A, B, nseq, chunk)
     return nch / nphases
-
-
-def _pick_engine(engine, traceback=False):
-    if engine is not None:
-        return engine
-    try:
-        if jax.devices()[0].platform == "tpu":
-            # the register-blocked kernel backs both: score-only
-            # fills, and walks via its 2-bit greedy word mode (4x
-            # less arrow HBM than the monolithic kernel's 8-bit
-            # cells — 2.5 GB vs an OOMing 20 GB at 1x100kb — and a
-            # VMEM footprint independent of the device's row count,
-            # so chunks stay large)
-            return "pallasb"
-        return "scan"
-    except Exception:  # pragma: no cover
-        return "scan"
 
 
 def huge_pair_score_sharded(
     top, side, m, k, d, mesh: Mesh, axis: str = "seq",
     chunk: int | None = None,
-    engine: str | None = None, interpret: bool = False,
 ) -> int:
     """Score of ONE huge pair, rows sharded over ``axis``, chunked halo.
 
     ``chunk=None`` auto-picks C for >= 87.5% pipeline efficiency
-    (:func:`auto_chunk`).  ``engine``: "pallasb" (register-blocked
-    fold-chunk kernel — the TPU default for fills AND walks),
-    "pallas" (monolithic fold-layout chunk kernel, 8-bit tie-mask
-    arrows) or "scan" (pure lax.scan — the CPU default and the
-    cross-checked reference formulation)."""
-    engine = _pick_engine(engine, traceback=False)
+    (:func:`auto_chunk`)."""
     if chunk is None:
-        chunk = auto_chunk(top.shape[0], side.shape[0], mesh.shape[axis], engine)
+        chunk = auto_chunk(top.shape[0], side.shape[0], mesh.shape[axis])
     return int(
         _huge_pair_device(
             jnp.asarray(top), jnp.asarray(side),
             m=int(m), k=int(k), d=int(d), mesh=mesh, axis=axis,
-            chunk=chunk, traceback=False, engine=engine,
-            interpret=interpret,
+            chunk=chunk, traceback=False,
         )
     )
 
@@ -1400,25 +446,19 @@ def huge_pair_score_sharded(
 def huge_pair_align_sharded(
     top, side, m, k, d, mesh: Mesh, axis: str = "seq",
     chunk: int | None = None,
-    engine: str | None = None, interpret: bool = False,
 ) -> HugeShardedResult:
     """Exact first-emission alignment of ONE huge pair across the mesh.
 
     The fill is the tiled block wavefront; arrows live sharded in each
-    device's HBM; the walk relays across devices.  Returns op codes with
-    :mod:`nw_tpu.ops.traceback` semantics (use ``ops_to_strings``).
+    device's memory; the walk relays across devices.  Returns op codes
+    with :mod:`nw_tpu.ops.traceback` semantics (use ``ops_to_strings``).
     """
-    engine = _pick_engine(engine, traceback=True)
     if chunk is None:
-        chunk = auto_chunk(
-            top.shape[0], side.shape[0], mesh.shape[axis], engine,
-            traceback=True,
-        )
+        chunk = auto_chunk(top.shape[0], side.shape[0], mesh.shape[axis])
     score, segs, seg_ns = _huge_pair_device(
         jnp.asarray(top), jnp.asarray(side),
         m=int(m), k=int(k), d=int(d), mesh=mesh, axis=axis,
-        chunk=chunk, traceback=True, engine=engine,
-        interpret=interpret,
+        chunk=chunk, traceback=True,
     )
     ops = _stitch_segments(segs, seg_ns, mesh.shape[axis])
     return HugeShardedResult(score=int(score), ops=ops, n=len(ops))

@@ -6,7 +6,7 @@ one per device along the ``seq`` mesh axis.  Every scan step, each device
 computes its chunk of the new diagonal; the only cross-device dependency
 is a **one-element halo** — lane ``j`` needs lanes ``j-1`` of the two
 previous diagonals, so each device ships its last lane to its right
-neighbor via ``ppermute`` over ICI.  The reference's equivalent is the
+neighbor via ``ppermute``.  The reference's equivalent is the
 pthread condvar handoff on the left cell (needleman-wunsch.c:444-452);
 here the collective's data dependency *is* the synchronization.
 
@@ -27,12 +27,6 @@ from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
 from nw_tpu.ops.fill_scan import NEG_INF
-
-try:
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -95,8 +89,7 @@ def fill_score_seq_sharded(top, side, *, m: int, k: int, d: int, mesh: Mesh, axi
             # neighbor's last lane of the previous diagonal; device 0's
             # wrap-around halo is masked to NEG_INF so the j == 0 and
             # j == kk boundary values emerge naturally from the
-            # recurrence (prev[0] - d chain), exactly as in the Pallas
-            # kernels (fill_pallas._scores_kernel) — no boundary select
+            # recurrence (prev[0] - d chain) — no boundary select
             halo = jnp.where(
                 is_p0, NEG_INF, jax.lax.ppermute(prev[-1:], axis, perm)
             )
@@ -124,7 +117,7 @@ def fill_score_seq_sharded(top, side, *, m: int, k: int, d: int, mesh: Mesh, axi
         # merge: exactly one device captured the corner
         return jax.lax.pmax(cap, axis)
 
-    mapped = shard_map(
+    mapped = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(axis), P()),

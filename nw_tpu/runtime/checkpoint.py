@@ -27,7 +27,7 @@ class CheckpointedRunner:
         mode, ...).  It is stored in the manifest and checked on resume
         so a directory of chunk files from a *different* computation is
         rejected instead of silently concatenated into mixed results
-        (ResumableBandedFill keys its state the same way)."""
+        (ResumableHugePair keys its state the same way)."""
         self.directory = directory
         self.chunk_size = chunk_size
         self.key = key
@@ -118,231 +118,6 @@ class CheckpointedRunner:
         )
 
 
-class ResumableBandedTraceback:
-    """Mid-run checkpoint/resume for the banded checkpointed traceback
-    (the config-3 engine, :mod:`nw_tpu.ops.banded_traceback`) —
-    VERDICT r2 item 6: the walk passes used to restart from zero on
-    preemption.
-
-    Both passes persist their carry atomically every ``save_every``
-    groups:
-
-    * pass 1 (score sweep): the boundary/accumulator state plus the
-      per-group checkpoint stack built so far;
-    * pass 2 (walk): the batched walk cursor (i, j) plus the 2-bit
-      packed per-group op prefixes emitted so far.
-
-    A killed run resumes from the last completed span and produces
-    bit-identical (scores[, counts], ops, n) — the persisted carry IS
-    the computation's only cross-group state.
-
-    Engine note: this runner is built on the TWO-PASS engine by
-    design.  The round-4 one-pass engine (the compiled default for
-    HBM-sized batches) is a single fused sweep with no cross-group
-    checkpoints to persist — a preempted one-pass sub-batch simply
-    re-runs (bounded loss: one sub-batch), while long or
-    preemption-sensitive jobs use this runner and keep span-level
-    resume.
-    """
-
-    def __init__(self, directory: str, save_every: int = 4):
-        self.directory = directory
-        self.save_every = save_every
-        os.makedirs(directory, exist_ok=True)
-
-    def _state_path(self) -> str:
-        return os.path.join(self.directory, "walk_state.npz")
-
-    def run(
-        self,
-        tops,
-        sides,
-        lens1,
-        lens2,
-        m: int,
-        k: int,
-        d: int,
-        with_counts: bool = False,
-        interpret: bool = False,
-        block_pairs: int = 128,
-        band_rows: int = 96,
-        chunk: int = 192,
-        unroll: int = 24,
-        group_bands: int = 8,
-        _abort_after_spans: Optional[int] = None,
-    ):
-        """Returns (scores int32[B], ops int8[B, S], n int32[B]) — or
-        (scores, counts, ops, n) with ``with_counts`` — matching
-        :func:`nw_tpu.ops.banded_traceback.traceback_banded_batch`.
-
-        ``_abort_after_spans`` is a test hook: raise (as a preemption
-        would) after that many checkpoint spans, counted across both
-        passes."""
-        import jax
-        import jax.numpy as jnp
-
-        from nw_tpu.ops.banded_traceback import (
-            _compact_group_ops,
-            _walk_setup,
-        )
-        from nw_tpu.ops.fill_pallas_banded import NEG_INF
-
-        nb, A = tops.shape
-        _, Bs = sides.shape
-        ngroups, U_pad, nb_pad, group_fwd, group_walk, cap = _walk_setup(
-            tops, sides, lens1, lens2, m, k, d, interpret, block_pairs,
-            band_rows, chunk, unroll, group_bands, with_counts,
-        )
-
-        span_g = jax.jit(
-            lambda st, gs: jax.lax.scan(group_fwd, st, gs)
-        )
-
-        @jax.jit
-        def span_w(i, j, cps_span, gs):
-            def body(carry, xg):
-                cp, g = xg
-                i2, j2 = carry
-                i2, j2, ops_g, ng = group_walk(i2, j2, cp, g)
-                return (i2, j2), (ops_g, ng)
-
-            (i, j), (ops_s, ng_s) = jax.lax.scan(
-                body, (i, j), (cps_span, gs)
-            )
-            # 2-bit pack on device: the persisted payload is 1/4 size
-            o = ops_s.astype(jnp.uint8)
-            ops4 = (
-                (o[:, 0::4] & 3)
-                | ((o[:, 1::4] & 3) << 2)
-                | ((o[:, 2::4] & 3) << 4)
-                | ((o[:, 3::4] & 3) << 6)
-            )
-            return i, j, ops4, ng_s
-
-        shape_key = dict(
-            nb=nb, A=A, Bs=Bs, m=int(m), k=int(k), d=int(d),
-            with_counts=with_counts, ngroups=ngroups,
-            band_rows=band_rows, chunk=chunk, unroll=unroll,
-            group_bands=group_bands, save_every=self.save_every,
-        )
-        spath = self._state_path()
-        S = self.save_every
-
-        # ---- load or init
-        g1 = g2 = 0
-        cps_list: list = []
-        ops4_list: list = []
-        ng_list: list = []
-        state = iv = jv = None
-        scores = counts = None
-        if os.path.exists(spath):
-            saved = np.load(spath, allow_pickle=True)
-            if json.loads(str(saved["key"])) != shape_key:
-                raise ValueError(
-                    f"checkpoint at {spath} is from a different run: "
-                    f"{saved['key']}"
-                )
-            g1 = int(saved["g1"])
-            g2 = int(saved["g2"])
-            cps_list = [jnp.asarray(c) for c in saved["cps"]]
-            if g1 < ngroups:
-                state = tuple(jnp.asarray(saved[f"st{x}"]) for x in range(4))
-            else:
-                scores = saved["scores"]
-                if with_counts:
-                    counts = saved["counts"]
-            if g2 > 0:
-                ops4_list = list(saved["ops4"])
-                ng_list = list(saved["ngs"])
-                iv = jnp.asarray(saved["i"])
-                jv = jnp.asarray(saved["j"])
-        if state is None and g1 < ngroups:
-            state = (
-                jnp.full((1, nb_pad), NEG_INF, jnp.int32),
-                jnp.zeros((1, nb_pad), jnp.int32),
-                jnp.full((U_pad, nb_pad), NEG_INF, jnp.int32),
-                jnp.zeros((U_pad, nb_pad), jnp.int32),
-            )
-
-        spans_done = 0
-
-        def persist(**extra):
-            payload = dict(
-                key=json.dumps(shape_key), g1=g1, g2=g2,
-                cps=np.stack([np.asarray(c) for c in cps_list])
-                if cps_list else np.zeros((0, U_pad, nb_pad), np.int32),
-                ops4=np.stack(ops4_list)
-                if ops4_list else np.zeros((0, cap // 4, nb), np.uint8),
-                ngs=np.stack(ng_list)
-                if ng_list else np.zeros((0, nb), np.int32),
-                **extra,
-            )
-            tmp = spath + f".tmp{os.getpid()}"
-            with open(tmp, "wb") as f:
-                np.savez(f, **payload)
-            os.replace(tmp, spath)
-
-        def maybe_abort():
-            nonlocal spans_done
-            spans_done += 1
-            if _abort_after_spans and spans_done >= _abort_after_spans:
-                raise KeyboardInterrupt("simulated preemption")
-
-        # ---- pass 1: forward sweep, spans of S groups
-        while g1 < ngroups:
-            n_span = min(S, ngroups - g1)
-            gs = jnp.arange(g1, g1 + n_span, dtype=jnp.int32)
-            state, cps_span = span_g(state, gs)
-            cps_list.extend(cps_span[x] for x in range(n_span))
-            g1 += n_span
-            if g1 < ngroups:
-                persist(**{f"st{x}": np.asarray(state[x]) for x in range(4)})
-                maybe_abort()
-        if scores is None:
-            scores = np.asarray(state[0])[0, :nb]
-            counts = (
-                np.asarray(state[1])[0, :nb].astype(np.uint32)
-                if with_counts else None
-            )
-            persist(
-                scores=scores,
-                **({"counts": counts} if with_counts else {}),
-            )
-            maybe_abort()
-
-        # ---- pass 2: walk, spans of S groups, last group first
-        if iv is None:
-            iv = jnp.asarray(lens1, jnp.int32)
-            jv = jnp.asarray(lens2, jnp.int32)
-        while g2 < ngroups:
-            n_span = min(S, ngroups - g2)
-            g_hi = ngroups - 1 - g2
-            gs = jnp.arange(g_hi, g_hi - n_span, -1, dtype=jnp.int32)
-            cps_span = jnp.stack(
-                [cps_list[int(g)] for g in np.asarray(gs)]
-            )
-            iv, jv, ops4_s, ng_s = span_w(iv, jv, cps_span, gs)
-            ops4_list.extend(np.asarray(ops4_s))
-            ng_list.extend(np.asarray(ng_s))
-            g2 += n_span
-            persist(
-                scores=scores, i=np.asarray(iv), j=np.asarray(jv),
-                **({"counts": counts} if with_counts else {}),
-            )
-            if g2 < ngroups:
-                maybe_abort()
-
-        ops_stack = np.empty((ngroups, cap, nb), np.int8)
-        for r in range(4):
-            ops_stack[:, r::4] = (np.stack(ops4_list) >> (2 * r)) & 3
-        ops, n = _compact_group_ops(
-            ops_stack, np.stack(ng_list), A + Bs
-        )
-        if with_counts:
-            return scores, counts, ops, n
-        return scores, ops, n
-
-
 class ResumableHugePair:
     """Checkpoint/resume for the config-5 sharded huge-pair run
     (:mod:`nw_tpu.parallel.huge_pair`) — VERDICT r2 item 6: the tiled
@@ -375,8 +150,6 @@ class ResumableHugePair:
         mesh,
         axis: str = "seq",
         chunk: int = 64,
-        engine: Optional[str] = None,
-        interpret: bool = False,
         traceback: bool = True,
         _abort_after_spans: Optional[int] = None,
     ):
@@ -388,29 +161,22 @@ class ResumableHugePair:
             HugeShardedResult,
             _huge_span_device,
             _huge_walk_sharded,
-            _pick_engine,
             _stitch_segments,
             _tile_geometry,
             _tile_inputs,
             huge_state_init,
         )
 
-        engine = _pick_engine(engine, traceback)
         top = np.asarray(top)
         side = np.asarray(side)
         A, B = top.shape[0], side.shape[0]
         nseq = mesh.shape[axis]
-        _, _, _, _, nphases = _tile_geometry(A, B, nseq, chunk, engine)
-        side_sh, top_ext = _tile_inputs(
-            jnp.asarray(top), jnp.asarray(side), _tile_geometry(
-                A, B, nseq, chunk, engine
-            )[0],
-        )
+        N_pad, _, _, nphases = _tile_geometry(A, B, nseq, chunk)
+        side_sh, top_ext = _tile_inputs(jnp.asarray(top), jnp.asarray(side), N_pad)
 
         shape_key = dict(
             A=A, B=B, m=int(m), k=int(k), d=int(d), nseq=nseq,
-            chunk=chunk, engine=engine, traceback=traceback,
-            span=self.span,
+            chunk=chunk, traceback=traceback, span=self.span,
         )
         spath = self._state_path()
         s0 = 0
@@ -432,7 +198,7 @@ class ResumableHugePair:
             if traceback and "arr" in saved.files and s0 > 0:
                 arr_spans = [saved["arr"]]
         if state is None:
-            state = huge_state_init(A, B, mesh, axis, chunk, engine)
+            state = huge_state_init(A, B, mesh, axis, chunk)
 
         spans_done = 0
         while s0 < nphases:
@@ -441,7 +207,6 @@ class ResumableHugePair:
                 side_sh, top_ext, state, s0,
                 A=A, B=B, m=int(m), k=int(k), d=int(d), mesh=mesh,
                 axis=axis, chunk=chunk, span=n_span, traceback=traceback,
-                engine=engine, interpret=interpret,
             )
             state = {k2: np.asarray(v) for k2, v in state.items()}
             if traceback:
@@ -472,173 +237,7 @@ class ResumableHugePair:
             return score
         segs, seg_ns = _huge_walk_sharded(
             jnp.asarray(arr_spans[0]), np.int32(score),
-            A=A, B=B, mesh=mesh, axis=axis, chunk=chunk, engine=engine,
+            A=A, B=B, mesh=mesh, axis=axis, chunk=chunk,
         )
         ops = _stitch_segments(segs, seg_ns, nseq)
         return HugeShardedResult(score=score, ops=ops, n=len(ops))
-
-
-class ResumableBandedFill:
-    """Mid-fill checkpoint/resume for ONE banded fill (SURVEY §5
-    checkpoint row: boundary vectors + tile progress).
-
-    The banded engine's whole cross-band state is the boundary-row
-    buffer plus the score (and count) accumulators — a few MB regardless
-    of how many rows have been filled.  This runner executes the band
-    sweep ``save_every`` bands at a time and persists the state
-    atomically after each span, so a preempted fill of a 100 kb+ batch
-    resumes from the last completed span instead of from zero
-    (VERDICT r1 item 4).  Resumed runs are bit-identical to
-    uninterrupted ones: the state IS the computation's only carry.
-    """
-
-    def __init__(self, directory: str, save_every: int = 16):
-        self.directory = directory
-        self.save_every = save_every
-        os.makedirs(directory, exist_ok=True)
-
-    def _state_path(self) -> str:
-        return os.path.join(self.directory, "fill_state.npz")
-
-    def run(
-        self,
-        tops,
-        sides,
-        lens1,
-        lens2,
-        m: int,
-        k: int,
-        d: int,
-        with_counts: bool = False,
-        interpret: bool = False,
-        band_rows: Optional[int] = None,
-        chunk: Optional[int] = None,
-        unroll: Optional[int] = None,
-        _abort_after_spans: Optional[int] = None,
-    ):
-        """Banded score fill (optionally fused counts) with mid-fill
-        persistence.  Returns scores int32[B] (and counts uint32[B]).
-
-        ``_abort_after_spans`` is a test hook: stop (as a preemption
-        would) after that many checkpoint spans.
-        """
-        import jax
-        import jax.numpy as jnp
-
-        from nw_tpu.ops import fill_pallas_banded as fb
-
-        band_rows = band_rows or fb.DEFAULT_BAND_ROWS
-        chunk = chunk or fb.DEFAULT_CHUNK
-        unroll = unroll or fb.DEFAULT_UNROLL
-        if with_counts and chunk == fb.DEFAULT_CHUNK:
-            chunk = 192
-
-        nb, A = tops.shape
-        _, Bs = sides.shape
-        N = Bs + 1
-        BT = fb.LANES
-        S = self.save_every
-        RB, nbands, C, T_pad, lag0, off, U_pad = fb._geometry(
-            A, N, band_rows, chunk, unroll
-        )
-        # whole spans: pad bands sweep pad rows, never capture
-        nbands = -(-nbands // S) * S
-        N_pad = nbands * RB
-        tops_sh, sides_sh, lens, nb_pad = fb._prep_banded(
-            tops, sides, lens1, lens2, BT, T_pad, N_pad
-        )
-        if with_counts:
-            call = fb.build_arrows_call(
-                RB, C, off, lag0, unroll, T_pad, U_pad, nb_pad, BT,
-                interpret, with_counts=True, with_words=False,
-            )
-        else:
-            call = fb.build_scores_call(
-                RB, C, off, lag0, unroll, T_pad, U_pad, nb_pad, BT, interpret
-            )
-
-        @jax.jit
-        def span(state, r_start, mkd):
-            def body(carry, rr):
-                s = fb._band_scalars(
-                    mkd[0], mkd[1], mkd[2], r_start + rr, RB, lens, nb
-                )
-                if with_counts:
-                    scores, counts, bnd, cbnd = carry
-                    part, bnd, cpart, cbnd = call(
-                        s, tops_sh, sides_sh, lens, bnd, bnd, cbnd, cbnd
-                    )
-                    return (
-                        jnp.maximum(scores, part), counts + cpart, bnd, cbnd
-                    ), None
-                scores, bnd = carry
-                part, bnd = call(s, tops_sh, sides_sh, lens, bnd, bnd)
-                return (jnp.maximum(scores, part), bnd), None
-
-            return jax.lax.scan(
-                body, state, jnp.arange(S, dtype=jnp.int32)
-            )[0]
-
-        shape_key = dict(
-            nb=nb, A=A, Bs=Bs, RB=RB, C=C, nbands=nbands,
-            m=int(m), k=int(k), d=int(d), with_counts=with_counts,
-            save_every=S,
-        )
-        spath = self._state_path()
-        r0 = 0
-        state = None
-        if os.path.exists(spath):
-            saved = np.load(spath, allow_pickle=True)
-            if json.loads(str(saved["key"])) != shape_key:
-                raise ValueError(
-                    f"checkpoint at {spath} is from a different fill: "
-                    f"{saved['key']}"
-                )
-            r0 = int(saved["r_next"])
-            state = (
-                jnp.asarray(saved["scores"]),
-                jnp.asarray(saved["bnd"]),
-            )
-            if with_counts:
-                state = (
-                    state[0], jnp.asarray(saved["counts"]),
-                    state[1], jnp.asarray(saved["cbnd"]),
-                )
-        if state is None:
-            scores0 = jnp.full((1, nb_pad), fb.NEG_INF, jnp.int32)
-            bnd0 = jnp.full((U_pad, nb_pad), fb.NEG_INF, jnp.int32)
-            if with_counts:
-                state = (
-                    scores0, jnp.zeros((1, nb_pad), jnp.int32),
-                    bnd0, jnp.zeros((U_pad, nb_pad), jnp.int32),
-                )
-            else:
-                state = (scores0, bnd0)
-
-        mkd = jnp.asarray([m, k, d], jnp.int32)
-        spans_done = 0
-        r = r0
-        while r < nbands:
-            state = span(state, jnp.int32(r), mkd)
-            r += S
-            payload = dict(
-                key=json.dumps(shape_key),
-                r_next=r,
-                scores=np.asarray(state[0]),
-                bnd=np.asarray(state[2] if with_counts else state[1]),
-            )
-            if with_counts:
-                payload["counts"] = np.asarray(state[1])
-                payload["cbnd"] = np.asarray(state[3])
-            tmp = spath + f".tmp{os.getpid()}"
-            with open(tmp, "wb") as f:
-                np.savez(f, **payload)
-            os.replace(tmp, spath)
-            spans_done += 1
-            if _abort_after_spans and spans_done >= _abort_after_spans and r < nbands:
-                raise KeyboardInterrupt("simulated preemption")
-
-        scores = np.asarray(state[0])[0, :nb]
-        if with_counts:
-            return scores, np.asarray(state[1])[0, :nb].astype(np.uint32)
-        return scores

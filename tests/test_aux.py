@@ -268,151 +268,3 @@ def test_checkpoint_retry(tmp_path):
         CheckpointedRunner(str(tmp_path / "r2"), chunk_size=8).run(
             [(b"A", b"A")] * 4, always_fails, retries=1
         )
-
-
-def test_resumable_banded_fill_kill_and_resume(tmp_path):
-    """Mid-fill checkpoint: a preempted banded fill resumes from the
-    last persisted boundary state, bit-identical to an uninterrupted
-    run (SURVEY §5 checkpoint row; VERDICT r1 item 4)."""
-    import jax.numpy as jnp
-
-    from nw_tpu.ops.encode import encode_batch
-    from nw_tpu.ops.fill_scan import fill_scores_batch
-    from nw_tpu.ops.pathcount import count_paths
-    from nw_tpu.runtime.checkpoint import ResumableBandedFill
-
-    rng = np.random.default_rng(12)
-    ps = [
-        (
-            "".join(rng.choice(list("ACGT"), int(rng.integers(30, 70)))).encode(),
-            "".join(rng.choice(list("ACGT"), int(rng.integers(30, 70)))).encode(),
-        )
-        for _ in range(5)
-    ]
-    tops, sides, l1, l2 = encode_batch(ps)
-    ref = np.asarray(
-        fill_scores_batch(tops, sides, 2, 1, 1, jnp.asarray(l1), jnp.asarray(l2))
-    )
-
-    kw = dict(
-        with_counts=False, interpret=True, band_rows=8, chunk=8, unroll=4
-    )
-    # uninterrupted run
-    r1dir = tmp_path / "full"
-    full = ResumableBandedFill(str(r1dir), save_every=2)
-    scores_full = full.run(tops, sides, l1, l2, 2, 1, 1, **kw)
-    np.testing.assert_array_equal(scores_full, ref)
-
-    # killed mid-fill, then resumed in a fresh runner
-    r2dir = tmp_path / "killed"
-    runner = ResumableBandedFill(str(r2dir), save_every=2)
-    with pytest.raises(KeyboardInterrupt):
-        runner.run(
-            tops, sides, l1, l2, 2, 1, 1, _abort_after_spans=1, **kw
-        )
-    assert (r2dir / "fill_state.npz").exists()
-    resumed = ResumableBandedFill(str(r2dir), save_every=2)
-    scores_resumed = resumed.run(tops, sides, l1, l2, 2, 1, 1, **kw)
-    np.testing.assert_array_equal(scores_resumed, ref)
-
-    # wrong-shape resume is refused
-    with pytest.raises(ValueError):
-        ResumableBandedFill(str(r2dir), save_every=2).run(
-            tops, sides, l1, l2, 3, 1, 1, **kw
-        )
-
-
-def test_resumable_banded_traceback_kill_and_resume(tmp_path):
-    """Mid-WALK checkpoint (VERDICT r2 item 6): a config-3 style
-    traceback run killed in pass 1, pass 2, or between them resumes
-    bit-identical to an uninterrupted run (scores, counts, ops, n)."""
-    from nw_tpu.ops.banded_traceback import traceback_banded_batch
-    from nw_tpu.runtime.checkpoint import ResumableBandedTraceback
-
-    rng = np.random.default_rng(14)
-    ps = [
-        (
-            "".join(rng.choice(list("ACGT"), int(rng.integers(30, 70)))).encode(),
-            "".join(rng.choice(list("ACGT"), int(rng.integers(30, 70)))).encode(),
-        )
-        for _ in range(5)
-    ]
-    from nw_tpu.ops.encode import encode_batch
-
-    tops, sides, l1, l2 = encode_batch(ps)
-    kw = dict(
-        with_counts=True, interpret=True, band_rows=8, chunk=16,
-        unroll=4, group_bands=2,
-    )
-    want = traceback_banded_batch(tops, sides, l1, l2, 2, 1, 1, **kw)
-
-    # kill at successive span boundaries; each resume must finish
-    # identically (spans cover pass 1, the pass boundary, and pass 2)
-    rdir = tmp_path / "walk"
-    for abort_at in (1, 2, 4):
-        runner = ResumableBandedTraceback(str(rdir) + str(abort_at), save_every=1)
-        try:
-            runner.run(
-                tops, sides, l1, l2, 2, 1, 1,
-                _abort_after_spans=abort_at, **kw
-            )
-            killed = False
-        except KeyboardInterrupt:
-            killed = True
-        if not killed:
-            continue
-        got = ResumableBandedTraceback(
-            str(rdir) + str(abort_at), save_every=1
-        ).run(tops, sides, l1, l2, 2, 1, 1, **kw)
-        for a, b in zip(got, want):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    # uninterrupted run through the runner matches too
-    got = ResumableBandedTraceback(str(tmp_path / "w0"), save_every=2).run(
-        tops, sides, l1, l2, 2, 1, 1, **kw
-    )
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    # wrong-params resume is refused
-    with pytest.raises(ValueError):
-        ResumableBandedTraceback(str(rdir) + "1", save_every=1).run(
-            tops, sides, l1, l2, 3, 1, 1, **kw
-        )
-
-
-def test_resumable_banded_fill_counts(tmp_path):
-    import jax
-    import jax.numpy as jnp
-
-    from nw_tpu.ops.encode import encode_batch
-    from nw_tpu.ops.fill_scan import fill_diag_batch
-    from nw_tpu.ops import pathcount
-    from nw_tpu.runtime.checkpoint import ResumableBandedFill
-
-    rng = np.random.default_rng(13)
-    ps = [
-        (
-            "".join(rng.choice(list("ACGT"), 40)).encode(),
-            "".join(rng.choice(list("ACGT"), 45)).encode(),
-        )
-        for _ in range(3)
-    ]
-    tops, sides, l1, l2 = encode_batch(ps)
-    l1j, l2j = jnp.asarray(l1), jnp.asarray(l2)
-    ref = fill_diag_batch(tops, sides, 2, 1, 1, l1j, l2j)
-    ref_counts = np.asarray(jax.vmap(pathcount.count_paths)(ref["arrows"], l1j, l2j))
-
-    runner = ResumableBandedFill(str(tmp_path / "c"), save_every=3)
-    with pytest.raises(KeyboardInterrupt):
-        runner.run(
-            tops, sides, l1, l2, 2, 1, 1, with_counts=True,
-            interpret=True, band_rows=8, chunk=8, unroll=4,
-            _abort_after_spans=1,
-        )
-    scores, counts = ResumableBandedFill(str(tmp_path / "c"), save_every=3).run(
-        tops, sides, l1, l2, 2, 1, 1, with_counts=True,
-        interpret=True, band_rows=8, chunk=8, unroll=4,
-    )
-    np.testing.assert_array_equal(scores, np.asarray(ref["score"]))
-    np.testing.assert_array_equal(counts, ref_counts)

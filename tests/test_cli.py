@@ -5,6 +5,13 @@ checkout present."""
 import pytest
 
 from tests.conftest import run_ours
+from tests.golden import (
+    GT_GA_COUNTS,
+    README_ALIGNMENTS,
+    README_INPUT,
+    README_SUMMARY,
+    README_TABLE,
+)
 
 
 def test_basic_gt_gt():
@@ -16,7 +23,7 @@ def test_basic_gt_gt():
 
 def test_counts_line():
     rc, out, err = run_ours(["-l", "1", "1", "1"], b"GT GA")
-    assert out == b"GT\nGA\n1 match, 1 mismatch, 0 indels\n\n"
+    assert out == GT_GA_COUNTS
 
 
 def test_multiple_alignments_order():
@@ -25,13 +32,9 @@ def test_multiple_alignments_order():
 
 
 def test_readme_example_summary_to_stderr():
-    rc, out, err = run_ours(["-s", "1", "1", "1"], b"GCATGCU GATTACA")
-    assert out == (
-        b"GCA-TGCU\nG-ATTACA\n\n"
-        b"GCAT-GCU\nG-ATTACA\n\n"
-        b"GCATG-CU\nG-ATTACA\n\n"
-    )
-    assert err == b"3 optimal alignments\nOptimal score is 0\n"
+    rc, out, err = run_ours(["-s", "1", "1", "1"], README_INPUT)
+    assert out == README_ALIGNMENTS
+    assert err == README_SUMMARY
 
 
 def test_quiet_summary_only():
@@ -52,26 +55,7 @@ def test_singular_pluralization():
 
 def test_table_ascii():
     rc, out, err = run_ours(["-q", "-s", "-t", "1", "1", "1"], b"GCATGCU GATTACA")
-    expected = (
-        b"\n"
-        b"*     -     G     C     A     T     G     C     U\n"
-        b"                                                 \n"
-        b"-    +0  < -1  < -2  < -3  < -4  < -5  < -6  < -7\n"
-        b"      ^  \\                       \\               \n"
-        b"G    -1    +1  < +0  < -1  < -2  < -3  < -4  < -5\n"
-        b"      ^     ^  \\     \\                           \n"
-        b"A    -2    +0    +0    +1  < +0  < -1  < -2  < -3\n"
-        b"      ^     ^  \\  ^     ^  \\                     \n"
-        b"T    -3    -1    -1    +0    +2  < +1  < +0  < -1\n"
-        b"      ^     ^  \\  ^     ^  \\  ^  \\     \\     \\   \n"
-        b"T    -4    -2    -2    -1    +1    +1  < +0  < -1\n"
-        b"      ^     ^  \\  ^  \\        ^  \\  ^  \\     \\   \n"
-        b"A    -5    -3    -3    -1    +0    +0    +0  < -1\n"
-        b"      ^     ^  \\        ^     ^  \\  ^  \\         \n"
-        b"C    -6    -4    -2    -2    -1    -1    +1  < +0\n"
-        b"      ^     ^     ^  \\        ^  \\  ^     ^  \\   \n"
-        b"A    -7    -5    -3    -1  < -2    -2    +0    +0\n"
-    )
+    expected = README_TABLE
     assert out == expected
     assert err == b"3 optimal alignments\nOptimal score is 0\n"
 

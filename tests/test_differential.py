@@ -385,8 +385,8 @@ def test_debug_build_parity(reference_debug_binary, monkeypatch):
 
 # ---- batch-API differential: align_batch vs the reference binary ----
 # The CLI differentials above exercise the single-pair engines; the
-# BATCH engines (the production route for real workloads — row-sweep /
-# flat / banded kernels on TPU, the scan oracles here on CPU) were only
+# BATCH engines (the production route for real workloads — the row-sweep
+# kernel on the GPU, the scan oracles here on CPU) were only
 # transitively covered.  This drives nw_tpu.models.align_batch directly
 # against per-pair reference runs: score + solution count (-q -s) and
 # the first-emitted alignment (the reference DFS's first block).
@@ -415,8 +415,7 @@ def _ref_first_alignment(reference_binary, s1, s2, m, k, d):
 
 
 def batch_vs_reference(reference_binary, pairs, m, k, d, first_cap=32):
-    """Shared driver (also used by scripts/tpu_validate.py on the real
-    chip, where align_batch takes the compiled row-sweep routes)."""
+    """Shared driver of the batch-API differential cases."""
     from nw_tpu.models.needleman_wunsch import align_batch
 
     res = align_batch(pairs, m, k, d, traceback_strings=True, count=True)

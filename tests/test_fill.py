@@ -89,3 +89,62 @@ def test_symmetry_swap():
         (A2 & 1) | ((A2 & 2) << 1) | ((A2 & 4) >> 1)
     )  # LEFT<->UP under transpose
     np.testing.assert_array_equal(A1, swapped.T)
+
+
+def naive_count(Ar):
+    """Optimal-path count over rectangular arrows (uint32 wraparound,
+    the reference's unsigned counter, computation.h:65)."""
+    N, M = Ar.shape
+    C = np.zeros((N, M), np.uint64)
+    C[0, 0] = 1
+    for j in range(N):
+        for i in range(M):
+            if i == 0 and j == 0:
+                continue
+            a = int(Ar[j, i])
+            c = 0
+            if a & 1:
+                c += int(C[j - 1, i - 1])
+            if a & 2:
+                c += int(C[j, i - 1])
+            if a & 4:
+                c += int(C[j - 1, i])
+            C[j, i] = c % 2**32
+    return int(C[N - 1, M - 1])
+
+
+@pytest.mark.parametrize("s1,s2,m,k,d", CASES)
+def test_score_count_matches_naive(s1, s2, m, k, d):
+    """The O(N)-memory fused score + count pass == the full-table DP."""
+    from nw_tpu.ops.fill_scan import fill_score_count
+
+    H, Ar = naive_nw(s1, s2, m, k, d)
+    sc, cnt = fill_score_count(encode(s1), encode(s2), m, k, d)
+    assert int(sc) == H[-1, -1]
+    assert int(cnt) == naive_count(Ar)
+
+
+@pytest.mark.parametrize("L1,L2", [(23, 17), (1, 40), (40, 1), (31, 31)])
+def test_score_count_padded_matches_count_paths(L1, L2):
+    """Bucket-padded inputs with true lengths, tie-dense alphabet: the
+    fused pass equals fill_diag + count_paths on the unpadded pair."""
+    from nw_tpu.ops import pathcount
+    from nw_tpu.ops.fill_scan import fill_score_count
+
+    rng = np.random.default_rng(L1 * 100 + L2)
+    s1 = "".join(rng.choice(list("AC"), L1))
+    s2 = "".join(rng.choice(list("AC"), L2))
+    top, side, _, _ = encode_pair(s1, s2, 48, 48)
+    sc, cnt = fill_score_count(top, side, 1, 1, 1, L1, L2)
+    ref = fill_diag(encode(s1), encode(s2), 1, 1, 1)
+    assert int(sc) == int(ref["score"])
+    assert int(cnt) == int(pathcount.count_paths(ref["arrows"], L1, L2))
+
+
+def test_summary_huge_matches_align():
+    from nw_tpu.models.needleman_wunsch import NWAligner
+
+    al = NWAligner(match=1, mismatch=1, indel=1)
+    for s1, s2 in [("GCATGCU", "GATTACA"), ("", ""), ("", "AC"), ("A" * 30, "A" * 28)]:
+        full = al.align(s1, s2)
+        assert al.summary_huge(s1, s2) == (full.score, full.solution_count % 2**32)

@@ -123,12 +123,12 @@ def test_auto_chunk_efficiency():
 
     for nseq in (2, 4, 8):
         for L in (30_000, 100_000, 400_000):
-            C = auto_chunk(L, L, nseq, "pallas")
-            eff = pipeline_efficiency(L, L, nseq, C, "pallas")
+            C = auto_chunk(L, L, nseq)
+            eff = pipeline_efficiency(L, L, nseq, C)
             assert eff >= 0.85, (nseq, L, C, eff)
     # smaller chunks only help: the efficiency model is monotone
-    assert pipeline_efficiency(100_000, 100_000, 8, 128, "pallas") >= (
-        pipeline_efficiency(100_000, 100_000, 8, 2048, "pallas")
+    assert pipeline_efficiency(100_000, 100_000, 8, 128) >= (
+        pipeline_efficiency(100_000, 100_000, 8, 2048)
     )
 
     # chunk=None (auto) drives a real mesh run to the oracle answer
@@ -143,202 +143,98 @@ def test_auto_chunk_efficiency():
     np.testing.assert_array_equal(r.ops, np.asarray(opsr)[: int(nr)])
 
 
-@pytest.mark.parametrize("engine", ["scan", "pallas", "pallasb"])
-def test_resumable_huge_pair_kill_and_resume(tmp_path, engine):
-    """Config-5 checkpoint/resume (VERDICT r2 item 6): the tiled fill
-    persists its per-device phase carry + arrow planes each span; a
-    killed run resumes and produces the identical score/ops as the
-    uninterrupted sharded engine."""
+def test_resumable_huge_pair_kill_and_resume(tmp_path):
+    """Config-5 checkpoint/resume: the tiled fill persists its
+    per-device phase carry + arrow planes each span; a killed run
+    resumes and produces the identical score/ops as the uninterrupted
+    sharded engine."""
     from nw_tpu.parallel.huge_pair import huge_pair_align_sharded
     from nw_tpu.runtime.checkpoint import ResumableHugePair
 
     mesh = _mesh(4)
-    rng = np.random.default_rng(99 + len(engine))
+    rng = np.random.default_rng(103)
     top, side = _case(rng, 40, 50)
-    kw = dict(
-        # pallasb walk words pack 16 diagonals per chunk-word quantum
-        chunk=16 if engine == "pallasb" else 8,
-        engine=engine, interpret=engine != "scan",
-    )
-    want = huge_pair_align_sharded(top, side, 2, 1, 1, mesh, **kw)
+    want = huge_pair_align_sharded(top, side, 2, 1, 1, mesh, chunk=8)
 
-    rdir = tmp_path / f"huge-{engine}"
+    rdir = tmp_path / "huge"
     runner = ResumableHugePair(str(rdir), span=3)
     with pytest.raises(KeyboardInterrupt):
-        runner.run(
-            top, side, 2, 1, 1, mesh, _abort_after_spans=2, **kw
-        )
+        runner.run(top, side, 2, 1, 1, mesh, chunk=8, _abort_after_spans=2)
     assert (rdir / "huge_state.npz").exists()
     got = ResumableHugePair(str(rdir), span=3).run(
-        top, side, 2, 1, 1, mesh, **kw
+        top, side, 2, 1, 1, mesh, chunk=8
     )
     assert got.score == want.score
     assert got.n == want.n
     np.testing.assert_array_equal(got.ops, want.ops)
 
     # uninterrupted run through the runner matches too
-    got2 = ResumableHugePair(str(tmp_path / f"h0-{engine}"), span=4).run(
-        top, side, 2, 1, 1, mesh, **kw
+    got2 = ResumableHugePair(str(tmp_path / "h0"), span=4).run(
+        top, side, 2, 1, 1, mesh, chunk=8
     )
     assert (got2.score, got2.n) == (want.score, want.n)
 
     # wrong-params resume is refused
     with pytest.raises(ValueError):
         ResumableHugePair(str(rdir), span=3).run(
-            top, side, 3, 1, 1, mesh, **kw
+            top, side, 3, 1, 1, mesh, chunk=8
         )
 
 
 @pytest.mark.parametrize(
-    "la,lb,C,mkd",
+    "nseq,la,lb,C,mkd",
     [
-        (33, 41, 8, (2, 1, 1)),
-        (5, 80, 8, (2, 1, 1)),
-        (64, 64, 8, (0, 0, 0)),
-        (300, 280, 32, (3, -1, 2)),
+        (8, 33, 41, 8, (2, 1, 1)),
+        (8, 5, 80, 8, (2, 1, 1)),
+        (8, 64, 64, 8, (0, 0, 0)),    # max tie density
+        (8, 300, 280, 32, (3, -1, 2)),
+        (2, 257, 511, 16, (2, 1, 1)),
+        (1, 120, 999, 16, (3, -1, 2)),  # one device: the single-card route
+        (2, 150, 900, 24, (2, 1, 1)),
+        (8, 80, 2100, 16, (2, 1, 1)),   # long side over the full mesh
+        (4, 1, 0, 4, (2, 1, 1)),        # degenerate lengths
+        (3, 0, 17, 4, (2, 1, 1)),
     ],
 )
-def test_sharded_huge_pair_pallas_engine(la, lb, C, mkd):
-    """The fold-chunk Pallas engine (per-device kernel-speed fills),
-    interpret mode on the CPU mesh, vs the same oracles."""
+def test_sharded_huge_pair_shapes(nseq, la, lb, C, mkd):
+    """Mesh sizes x shapes (long sides, one-device meshes, chunks that
+    do not divide the table) vs the single-device oracles: score-only
+    fill, and the relay walk's exact first-emission alignment."""
     from nw_tpu.parallel.huge_pair import (
         huge_pair_align_sharded,
         huge_pair_score_sharded,
     )
 
-    mesh = _mesh(8)
-    rng = np.random.default_rng(la * 7 + lb)
-    top, side = _case(rng, la, lb)
-    ref = fill_diag(top, side, *mkd, with_scores=False)
-    opsr, nr = traceback.traceback_greedy(
-        ref["arrows"], la, lb, max_steps=la + lb
-    )
-    sc = huge_pair_score_sharded(
-        top, side, *mkd, mesh, chunk=C, engine="pallas", interpret=True
-    )
-    assert sc == int(ref["score"])
-    r = huge_pair_align_sharded(
-        top, side, *mkd, mesh, chunk=C, engine="pallas", interpret=True
-    )
-    assert r.score == int(ref["score"])
-    assert r.n == int(nr)
-    np.testing.assert_array_equal(r.ops, np.asarray(opsr)[: int(nr)])
-
-
-@pytest.mark.parametrize(
-    "nseq,la,lb,C,mkd,fb",
-    [
-        (8, 33, 41, 8, (2, 1, 1), None),
-        (8, 5, 80, 8, (2, 1, 1), None),
-        (8, 64, 64, 8, (0, 0, 0), None),   # max tie density
-        (8, 300, 280, 32, (3, -1, 2), None),
-        (2, 257, 511, 16, (2, 1, 1), None),
-        # forced small FB => multi-block grids (nb > 1): the edge
-        # stream, ch relay, activity windows, and corner-phase loop
-        # variants all cross block boundaries
-        (1, 120, 999, 16, (3, -1, 2), 1),
-        (2, 150, 900, 24, (2, 1, 1), 2),
-        (8, 80, 2100, 16, (2, 1, 1), 1),
-    ],
-)
-def test_sharded_huge_pair_pallasb_engine(monkeypatch, nseq, la, lb, C, mkd, fb):
-    """The register-blocked fold-chunk engine (``pallasb``, the TPU
-    default for score-only config-5 fills), interpret mode on CPU
-    meshes, vs the scan-oracle score.  Forced-FB rows shrink the block
-    height so small shapes exercise multi-block grids; each forced row
-    uses a distinct (shape, chunk) so the jit cache cannot serve an
-    entry traced under a different FB."""
-    import nw_tpu.parallel.huge_pair as hp
-
-    mesh = _mesh(nseq)
-    if fb is not None:
-        monkeypatch.setattr(hp, "_pick_fb", lambda B, n: fb)
-    rng = np.random.default_rng(la * 7 + lb + nseq)
-    top, side = _case(rng, la, lb)
-    ref = fill_diag(top, side, *mkd, with_scores=False)
-    sc = hp.huge_pair_score_sharded(
-        top, side, *mkd, mesh, chunk=C, engine="pallasb", interpret=True
-    )
-    assert sc == int(ref["score"])
-
-
-@pytest.mark.parametrize(
-    "nseq,la,lb,C,mkd,fb",
-    [
-        (8, 33, 41, 16, (2, 1, 1), None),
-        (8, 5, 80, 16, (2, 1, 1), None),
-        (8, 64, 64, 16, (0, 0, 0), None),  # max tie density
-        (2, 300, 280, 32, (3, -1, 2), None),
-        # forced small FB => multi-block grids (nb > 1): walk words
-        # cross block boundaries and the reader's sublane-fastest
-        # fold mapping is exercised across blocks
-        (1, 120, 999, 16, (3, -1, 2), 1),
-        (2, 150, 900, 48, (2, 1, 1), 2),
-    ],
-)
-def test_sharded_huge_pair_pallasb_walk(
-    monkeypatch, nseq, la, lb, C, mkd, fb
-):
-    """The register-blocked engine's 2-bit greedy walk words drive the
-    segment-relay walk to the exact scan-oracle alignment (score, ops,
-    length) — incl. all-tie pairs (the 2-bit codes collapse the tie
-    masks by the same diag > left > up priority the relay walk applies
-    to 3-bit masks)."""
-    import nw_tpu.parallel.huge_pair as hp
-
-    if fb is not None:
-        monkeypatch.setattr(hp, "_pick_fb", lambda B, n: fb)
     mesh = _mesh(nseq)
     rng = np.random.default_rng(la * 11 + lb + nseq)
     top, side = _case(rng, la, lb)
     ref = fill_diag(top, side, *mkd, with_scores=False)
     opsr, nr = traceback.traceback_greedy(
-        ref["arrows"], la, lb, max_steps=la + lb
+        ref["arrows"], la, lb, max_steps=max(1, la + lb)
     )
-    r = hp.huge_pair_align_sharded(
-        top, side, *mkd, mesh, chunk=C, engine="pallasb", interpret=True
+    assert huge_pair_score_sharded(top, side, *mkd, mesh, chunk=C) == int(
+        ref["score"]
     )
+    r = huge_pair_align_sharded(top, side, *mkd, mesh, chunk=C)
     assert r.score == int(ref["score"])
     assert r.n == int(nr)
     np.testing.assert_array_equal(r.ops, np.asarray(opsr)[: int(nr)])
 
 
-def test_pallasb_chunk_and_fb_contracts():
-    """auto_chunk returns 16-multiples for pallasb (unroll + edge-slab
-    quanta, and the walk word quantum); the builder rejects
-    non-8-multiple chunks; traceback requires a 16-multiple chunk
-    (16 packed codes per walk word)."""
-    from nw_tpu.parallel.huge_pair import (
-        _build_fold_chunk_call_blocked,
-        _huge_pair_device,
-        auto_chunk,
-    )
+def test_auto_chunk_contracts():
+    """auto_chunk stays inside [1, table diagonals] and one device takes
+    the largest chunk (no pipeline bubble to amortize)."""
+    from nw_tpu.parallel.huge_pair import auto_chunk
 
     for nseq in (1, 2, 8):
-        for L in (100, 5_000, 100_000):
-            assert auto_chunk(L, L, nseq, "pallasb") % 16 == 0
-            assert (
-                auto_chunk(L, L, nseq, "pallasb", traceback=True) % 16
-                == 0
-            )
-    # the walk-word out block must fit VMEM at any FB
-    assert auto_chunk(100_000, 100_000, 1, "pallasb", traceback=True) <= 1024
-    with pytest.raises(ValueError):
-        _build_fold_chunk_call_blocked(8, 1, 12, True)
-    with pytest.raises(ValueError):
-        _build_fold_chunk_call_blocked(16, 1, 24, True, traceback=True)
-    mesh = _mesh(1)
-    with pytest.raises(ValueError):
-        _huge_pair_device(
-            jnp.zeros(8, jnp.int32), jnp.zeros(8, jnp.int32),
-            m=1, k=1, d=1, mesh=mesh, axis="seq", chunk=8,
-            traceback=True, engine="pallasb", interpret=True,
-        )
+        for L in (1, 100, 5_000, 100_000):
+            C = auto_chunk(L, L, nseq)
+            assert 1 <= C <= 2 * L + nseq
+    assert auto_chunk(100_000, 100_000, 1) == 2048
 
 
-def test_resumable_huge_pair_pallasb_score_only(tmp_path):
-    """Score-only config-5 resume rides the register-blocked engine
-    (the TPU default for fills): kill mid-fill, resume, identical
+def test_resumable_huge_pair_score_only(tmp_path):
+    """Score-only config-5 resume: kill mid-fill, resume, identical
     score to the uninterrupted run."""
     from nw_tpu.parallel.huge_pair import huge_pair_score_sharded
     from nw_tpu.runtime.checkpoint import ResumableHugePair
@@ -346,16 +242,15 @@ def test_resumable_huge_pair_pallasb_score_only(tmp_path):
     mesh = _mesh(4)
     rng = np.random.default_rng(7)
     top, side = _case(rng, 40, 50)
-    kw = dict(chunk=8, engine="pallasb", interpret=True)
-    want = huge_pair_score_sharded(top, side, 2, 1, 1, mesh, **kw)
+    want = huge_pair_score_sharded(top, side, 2, 1, 1, mesh, chunk=8)
 
-    rdir = tmp_path / "huge-pb"
+    rdir = tmp_path / "huge-score"
     with pytest.raises(KeyboardInterrupt):
         ResumableHugePair(str(rdir), span=3).run(
-            top, side, 2, 1, 1, mesh, traceback=False,
-            _abort_after_spans=2, **kw
+            top, side, 2, 1, 1, mesh, chunk=8, traceback=False,
+            _abort_after_spans=2,
         )
     got = ResumableHugePair(str(rdir), span=3).run(
-        top, side, 2, 1, 1, mesh, traceback=False, **kw
+        top, side, 2, 1, 1, mesh, chunk=8, traceback=False
     )
     assert got == want

@@ -1,6 +1,7 @@
 """NWAligner library-surface tests (single pair + batched paths)."""
 
 import numpy as np
+import pytest
 
 from nw_tpu import AlignConfig, NWAligner, ScoringParams, align, align_batch
 
@@ -51,11 +52,10 @@ def test_empty_pair_library_semantics():
 
 
 def test_align_batch_small_huge_pairs_route(monkeypatch):
-    """A SMALL batch of pairs beyond HUGE_PAIR_MIN_SIDE runs per pair
-    through the huge-pair engines (a 2x100kb batch used to OOM on the
-    ~20 GB full-arrow buffer; at 128-lane banded padding it would do
-    128x the cell work).  Shrunk threshold: results must equal the
-    normal batch route bit-for-bit."""
+    """Pairs beyond HUGE_PAIR_MIN_SIDE run one at a time through the
+    O(N)-memory huge-pair routes (a 100 kb pair's uint8 arrows alone
+    are ~20 GB).  Shrunk threshold: results must equal the normal batch
+    route bit-for-bit."""
     import numpy as np
 
     import nw_tpu.ops.fill_auto as fa
@@ -83,9 +83,10 @@ def test_align_batch_small_huge_pairs_route(monkeypatch):
 
 
 def test_align_batch_auto_chunking(monkeypatch):
-    """HBM-aware auto-split produces identical results to one batch."""
+    """Memory-aware auto-split produces identical results to one batch."""
     import numpy as np
 
+    import nw_tpu.ops.fill_auto as fa
     from nw_tpu.models.needleman_wunsch import NWAligner
 
     rng = np.random.default_rng(33)
@@ -99,8 +100,29 @@ def test_align_batch_auto_chunking(monkeypatch):
     al = NWAligner(match=2, mismatch=1, indel=1)
     whole = al.align_batch(pairs, traceback_strings=True, count=True)
     # force ~3-pair chunks
-    monkeypatch.setenv("NW_TPU_ARROW_HBM", str(3 * (32 + 32 + 2) * 33))
+    monkeypatch.setattr(fa, "arrow_budget_bytes", lambda: 3 * (64 + 64 + 1) * 65)
     split = al.align_batch(pairs, traceback_strings=True, count=True)
     np.testing.assert_array_equal(whole.scores, split.scores)
     np.testing.assert_array_equal(whole.counts, split.counts)
     assert whole.alignment_strings() == split.alignment_strings()
+
+
+@pytest.mark.parametrize(
+    "strings,count", [(False, False), (False, True), (True, False), (True, True)]
+)
+def test_align_batch_empty_and_one_sided_pairs(strings, count):
+    """Empty and one-sided pairs in a ragged batch, every mode: scores,
+    counts (1 for a both-empty pair in a batch, like count_paths) and
+    strings equal the single-pair engine."""
+    pairs = [("", ""), ("", "ACG"), ("GT", ""), ("A", "A"), ("GATTACA", "GCATGCU")]
+    al = NWAligner(match=2, mismatch=1, indel=1)
+    r = al.align_batch(pairs, traceback_strings=strings, count=count)
+    for i, (a, b) in enumerate(pairs):
+        one = al.align(a, b)
+        assert r.scores[i] == one.score
+        if count:
+            assert r.counts[i] == (one.solution_count if (a or b) else 1)
+    if strings:
+        got = r.alignment_strings()
+        for i, (a, b) in enumerate(pairs):
+            assert got[i] == al.align(a, b).best_alignment()

@@ -95,30 +95,24 @@ def test_overlap_align_invariants(mkd):
         assert sc >= 0
 
 
-@pytest.mark.parametrize("rows,groups", [(8, 1), (4, 2)])
-def test_overlap_rowsweep_vs_oracle(rows, groups):
+@pytest.mark.parametrize("mkd", [(2, 1, 1), (-2, 3, -1)])
+def test_overlap_score_batch_vs_oracle(mkd):
+    """Ragged bucket-padded batches (incl. empty sides) through the
+    batched score route vs the single-pair scan oracle."""
     import jax.numpy as jnp
 
-    from nw_tpu.ops.variants_rowsweep import overlap_scores_rowsweep_batch
-
-    rng = np.random.default_rng(71 * rows + groups)
+    m, k, d = mkd
+    rng = np.random.default_rng(71 + m)
     ps = _pairs(rng, 18, 0, 30) + EDGE
-    tops, sides, l1, l2 = enc.encode_batch(ps)
-    for m, k, d in [(2, 1, 1), (-2, 3, -1)]:
-        got = np.asarray(
-            overlap_scores_rowsweep_batch(
-                tops, sides, l1, l2, m, k, d, rows=rows, groups=groups,
-                interpret=True,
-            )
+    got = overlap_score_batch(ps, m, k, d)
+    for b_i, (a, b) in enumerate(ps):
+        want = int(
+            overlap_fill_diag(
+                jnp.asarray(enc.encode(a)), jnp.asarray(enc.encode(b)),
+                m, k, d, with_arrows=False,
+            )["score"]
         )
-        for b_i, (a, b) in enumerate(ps):
-            want = int(
-                overlap_fill_diag(
-                    jnp.asarray(enc.encode(a)), jnp.asarray(enc.encode(b)),
-                    m, k, d, with_arrows=False,
-                )["score"]
-            )
-            assert got[b_i] == want, (b_i, a, b)
+        assert got[b_i] == want, (b_i, a, b)
 
 
 def test_overlap_align_batch_matches_single():
@@ -148,13 +142,11 @@ def test_overlap_score_batch_long_sides_no_cliff():
 
 
 @pytest.mark.parametrize("mkd", [(2, 1, 1), (-2, 3, -1)])
-def test_overlap_banded_vs_oracle(mkd):
-    """Banded overlap score kernel (any side length) vs the scan
-    oracle — ragged lengths crossing band boundaries, both parameter
-    signs (the free-boundary pins must hold for negative d too)."""
+def test_overlap_score_batch_long_ragged(mkd):
+    """Long ragged shapes (one side empty, very unequal sides) in one
+    padded bucket vs the scan oracle, both parameter signs (the
+    free-boundary pins must hold for negative d too)."""
     import jax.numpy as jnp
-
-    from nw_tpu.ops.variants_banded import overlap_scores_banded_batch
 
     m, k, d = mkd
     rng = np.random.default_rng(89 + m + k + d)
@@ -164,13 +156,7 @@ def test_overlap_banded_vs_oracle(mkd):
         a = rng.integers(65, 69, L1).astype(np.uint8).tobytes()
         b = rng.integers(65, 69, L2).astype(np.uint8).tobytes()
         ps.append((a, b))
-    tops, sides, l1, l2 = enc.encode_batch(ps)
-    got = np.asarray(
-        overlap_scores_banded_batch(
-            tops, sides, l1, l2, m, k, d, interpret=True,
-            band_rows=32, chunk=64, unroll=8,
-        )
-    )
+    got = overlap_score_batch(ps, m, k, d)
     for b_i, (a, b) in enumerate(ps):
         want = int(
             overlap_fill_diag(
@@ -182,30 +168,31 @@ def test_overlap_banded_vs_oracle(mkd):
 
 
 def test_overlap_align_batch_chunked(monkeypatch):
-    """The HBM-budget auto-split produces identical results to one
+    """The memory-budget auto-split produces identical results to one
     bucket (sub-batch boundaries must not change any alignment)."""
     import nw_tpu.models.overlap as ov
+    import nw_tpu.ops.fill_auto as fa
 
     rng = np.random.default_rng(101)
     ps = _pairs(rng, 11, 0, 24) + EDGE
     whole = ov.overlap_align_batch(ps, 2, 1, 1)
-    monkeypatch.setattr(ov, "ALIGN_ARROWS_HBM_BUDGET", 2000)
+    monkeypatch.setattr(fa, "arrow_budget_bytes", lambda: 2000)
     chunked = ov.overlap_align_batch(ps, 2, 1, 1)
     assert chunked == whole
 
 
-@pytest.mark.parametrize("engine", ["onepass", "twopass"])
+@pytest.mark.parametrize("budget", [None, 30_000])
 @pytest.mark.parametrize("mkd", [(2, 1, 1), (0, 0, 0)])
-def test_overlap_banded_traceback_vs_scan(mkd, engine, monkeypatch):
-    """Banded overlap FULL tracebacks == the scan walker (scores,
-    strings, start AND end cells) on ragged pairs crossing band/group
-    boundaries, incl. all-tie and degenerate pairs."""
-    if engine == "onepass":
-        monkeypatch.setenv("NW_TPU_ONEPASS_HBM", str(8 << 30))
-    from nw_tpu.models.overlap import overlap_align
-    from nw_tpu.ops.traceback import ops_to_strings
-    from nw_tpu.ops.variants_banded import overlap_traceback_banded_batch
+def test_overlap_align_batch_long_vs_scan(mkd, budget, monkeypatch):
+    """Batched overlap FULL alignments == the single-pair scan walker
+    (scores, strings, start AND end cells) on long ragged pairs, incl.
+    all-tie and degenerate pairs, in one bucket or split into
+    memory-budget sub-batches."""
+    import nw_tpu.ops.fill_auto as fa
+    from nw_tpu.models.overlap import overlap_align, overlap_align_batch
 
+    if budget is not None:
+        monkeypatch.setattr(fa, "arrow_budget_bytes", lambda: budget)
     m, k, d = mkd
     rng = np.random.default_rng(103 + m + k + d)
     ps = []
@@ -215,20 +202,9 @@ def test_overlap_banded_traceback_vs_scan(mkd, engine, monkeypatch):
         b = rng.integers(65, 69, L2).astype(np.uint8).tobytes()
         ps.append((a, b))
     ps += [(b"AAAATTTT", b"TTTTCCCC")]
-    tops, sides, l1, l2 = enc.encode_batch(ps)
-    best, jst, ist, j_end, i_end, ops, n = overlap_traceback_banded_batch(
-        tops, sides, l1, l2, m, k, d, interpret=True,
-        band_rows=16, chunk=32, unroll=8, group_bands=2,
-    )
+    got = overlap_align_batch(ps, m, k, d)
     for b_i, (a, b) in enumerate(ps):
-        sc, X, Y, start, end = overlap_align(a, b, m, k, d)
-        assert best[b_i] == sc, (b_i, best[b_i], sc)
-        assert (int(jst[b_i]), int(ist[b_i])) == end, (b_i, "end")
-        assert (int(j_end[b_i]), int(i_end[b_i])) == start, (b_i, "start")
-        gX, gY = ops_to_strings(
-            ops[b_i], int(n[b_i]), a[: int(ist[b_i])], b[: int(jst[b_i])]
-        )
-        assert (gX, gY) == (X, Y), (b_i, gX, X)
+        assert got[b_i] == overlap_align(a, b, m, k, d), b_i
 
 
 def test_overlap_score_batch_routes():

@@ -134,3 +134,14 @@ def test_overlap_scores_shard_over_data_mesh(mesh8):
     args = [jax.device_put(x, sh) for x in (tops, sides, l1j, l2j)]
     got = np.asarray(jax.jit(fn)(*args))
     np.testing.assert_array_equal(got, ref)
+
+
+def test_cells_stat_is_exact_beyond_int32():
+    """The ``cells`` stat is an exact host int: 64 pairs of 100 kb x
+    100 kb are 6.4e11 cells, far beyond int32."""
+    from nw_tpu.parallel.data_parallel import _cells
+
+    l1 = np.full((64,), 100_000, np.int32)
+    l2 = np.full((64,), 100_000, np.int32)
+    assert _cells(l1, l2) == 64 * 100_000 * 100_000
+    assert _cells(jnp.asarray(l1), jnp.asarray(l2)) == 64 * 10**10

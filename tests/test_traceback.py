@@ -188,33 +188,33 @@ def test_ops_to_strings_batch_matches_scalar():
     assert got == want
 
 
-def test_mark_optimal_cells_packed_dispatch():
-    """mark_optimal_cells accepts packed int32 words (dtype dispatch)."""
+def test_mark_optimal_cells_padded():
+    """mark_optimal_cells over bucket-padded batch arrows (true lengths)
+    equals the marks of the unpadded single-pair table."""
+    import jax.numpy as jnp
+
     from nw_tpu.ops.encode import encode_batch
-    from nw_tpu.ops.fill_pallas import fill_arrows_pallas_batch
+    from nw_tpu.ops.fill_scan import fill_diag_batch
 
     rng = np.random.default_rng(61)
     pairs = [
         (
-            "".join(rng.choice(list("ACGT"), 12)),
-            "".join(rng.choice(list("ACGT"), 10)),
+            "".join(rng.choice(list("ACGT"), int(rng.integers(1, 13)))),
+            "".join(rng.choice(list("ACGT"), int(rng.integers(1, 11)))),
         )
         for _ in range(4)
     ]
     tops, sides, l1, l2 = encode_batch(pairs, 12, 10)
-    words, _ = fill_arrows_pallas_batch(
-        tops, sides, l1, l2, 2, 1, 1, interpret=True, packed=True
-    )
-    arr, _ = fill_arrows_pallas_batch(
-        tops, sides, l1, l2, 2, 1, 1, interpret=True
-    )
-    for b in range(4):
-        mk_pk = np.asarray(
-            pathcount.mark_optimal_cells(words[:, :, b], int(l1[b]), int(l2[b]))
+    arr = fill_diag_batch(
+        tops, sides, 2, 1, 1, jnp.asarray(l1), jnp.asarray(l2)
+    )["arrows"]
+    for b, (s1, s2) in enumerate(pairs):
+        a1, a2 = int(l1[b]), int(l2[b])
+        mk_pad = diag_to_matrix(
+            np.asarray(pathcount.mark_optimal_cells(arr[b], a1, a2)), a1, a2
         )
-        mk_u8 = np.asarray(
-            pathcount.mark_optimal_cells(
-                np.asarray(arr)[:, :, b], int(l1[b]), int(l2[b])
-            )
+        one = fill_diag(encode(s1), encode(s2), 2, 1, 1)["arrows"]
+        mk_one = diag_to_matrix(
+            np.asarray(pathcount.mark_optimal_cells(one, a1, a2)), a1, a2
         )
-        np.testing.assert_array_equal(mk_pk, mk_u8)
+        np.testing.assert_array_equal(mk_pad, mk_one)
